@@ -1,0 +1,79 @@
+"""Primitive scheduling ops shared by the engines (torch port of
+``repro.core.engine.ops``, the BF-J/S subset).
+
+Every op takes any number of leading batch axes — the ensemble axis that
+the JAX package adds with ``vmap``.  Ties always break to the lowest index.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def row_sum_lr(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as an explicit left-to-right float32 chain,
+    ``((x0 + x1) + x2) + ...``.
+
+    Feasibility decisions compare residuals ``1 - row.sum()`` exactly, so
+    the summation order decides placements.  XLA's float32 row sum on the
+    CPU runs left to right for the row widths the engines use, while
+    ``torch.sum`` reduces in another order; spelling the chain out makes the
+    port's residuals bit-equal to the JAX package's, and the CUDA kernels
+    use the same chain."""
+    s = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        s = s + x[..., k]
+    return s
+
+
+def best_fit_server(residuals: torch.Tensor,
+                    size: torch.Tensor) -> torch.Tensor:
+    """Tightest feasible server for one job: argmin residual among residuals
+    >= size; -1 if none fits.  ``residuals (..., L)``, ``size (...)``."""
+    feasible = residuals >= size[..., None]
+    masked = torch.where(feasible, residuals,
+                         torch.full_like(residuals, float("inf")))
+    idx = torch.argmin(masked, dim=-1)
+    return torch.where(feasible.any(-1), idx, -1)
+
+
+def best_fit_place(residuals: torch.Tensor, sizes: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequentially Best-Fit place a batch of jobs: ``residuals (..., L)``,
+    ``sizes (..., N)`` -> (assignment ``(..., N)`` int32 with -1 =
+    rejected, new residuals)."""
+    resid = residuals.clone()
+    assign = []
+    for i in range(sizes.shape[-1]):
+        size = sizes[..., i]
+        srv = best_fit_server(resid, size)
+        ok = srv >= 0
+        col = torch.clamp_min(srv, 0)[..., None]
+        cur = torch.gather(resid, -1, col)[..., 0]
+        resid.scatter_(-1, col, torch.where(ok, cur + (-size), cur)[..., None])
+        assign.append(srv)
+    return torch.stack(assign, dim=-1).to(torch.int32), resid
+
+
+def first_empty_positions(empty: torch.Tensor, want: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter targets for admitting a masked batch into a fixed buffer.
+
+    ``empty`` is the buffer's ``(..., Q)`` empty-slot mask, ``want`` a
+    ``(..., N)`` mask of items asking for a slot.  Returns ``(pos,
+    landed)``: the i-th wanting item (in index order) is assigned the i-th
+    empty slot, ``landed`` masks the items that actually got one (``pos <
+    Q``; entries of non-wanting items are garbage and must stay masked)."""
+    n_empty = torch.cumsum(empty.to(torch.int32), dim=-1).contiguous()
+    rank = torch.cumsum(want.to(torch.int32), dim=-1) - 1
+    pos = torch.searchsorted(n_empty, (rank + 1).to(n_empty.dtype).contiguous())
+    return pos, want & (pos < empty.shape[-1])
+
+
+def largest_fitting_job(queue: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
+    """Index of the largest queued job with size <= cap (BF-S step); -1 if
+    none.  Zero entries are empty queue slots.  ``queue (..., Q)``,
+    ``cap (...)``."""
+    fits = (queue > 0) & (queue <= cap[..., None])
+    masked = torch.where(fits, queue, torch.full_like(queue, float("-inf")))
+    idx = torch.argmax(masked, dim=-1)
+    return torch.where(fits.any(-1), idx, -1)

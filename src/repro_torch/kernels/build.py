@@ -1,0 +1,113 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
+first use into its own shared library with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+then loaded with ``ctypes``.  The file name carries a hash of the source,
+so an edited kernel (or shared header) is rebuilt and a built one is reused.  ``build_all``
+starts one ``nvcc`` per source at once, so the wall time of a cold build is
+that of the slowest file.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the toolkit's default location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.exists():
+            return str(c)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def _target(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
+    return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start compiling ``name`` unless its library is built; returns the
+    running process (or None) and the library path."""
+    src, out = _target(name)
+    if out.exists():
+        return None, out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return (proc, tmp), out
+
+
+def _finish(name: str, started, out: Path) -> None:
+    if started is None:
+        return
+    proc, tmp = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names=None) -> dict[str, Path]:
+    """Compile every kernel source (or ``names``) in parallel; returns the
+    library paths.  Raises with the compiler's output on failure."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None \
+        else list(names)
+    with _lock:
+        jobs = {n: _start(n) for n in names}
+        for n, (started, out) in jobs.items():
+            _finish(n, started, out)
+    return {n: out for n, (_, out) in jobs.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = build_all([name])[name]
+        with _lock:
+            lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code (every source
+    exports ``cuda_error_string`` to name it)."""
+    if err != 0:
+        fn = lib.cuda_error_string
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{what} failed: CUDA error {err} "
+                           f"({fn(err).decode()})")

@@ -30,3 +30,7 @@ def pytest_configure(config):
         "slow: hypothesis-heavy or subprocess-spawning suite; the fast "
         'tier-1 lane deselects these with -m "not slow" (CI still runs '
         "the full suite)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and the CUDA toolkit (the port's "
+        "hand-written kernels); skips with a reason elsewhere")

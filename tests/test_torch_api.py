@@ -1,0 +1,135 @@
+"""The port's policy entry points: engines, devices, registry, and the
+import boundary (the port never loads JAX or the JAX package)."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.core.engine import make_streams as j_make_streams  # noqa: E402
+from repro.core.engine import run_policy_streams as j_rps  # noqa: E402
+from repro_torch.convert import (result_to_numpy,  # noqa: E402
+                                 streams_from_numpy)
+from repro_torch.core.engine import (Workload,  # noqa: E402
+                                     available_policies, monte_carlo_policy,
+                                     run_policy, run_policy_streams)
+from repro_torch.kernels.bfjs import bfjs as bfjs_kernel  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+CFG = dict(L=4, K=6, Qcap=64, A_max=6, horizon=80)
+
+
+def _sampler(gen, n, device):
+    return torch.rand(n, generator=gen, device=device) * 0.45 + 0.05
+
+
+def _equal(a, b):
+    for x, y in zip(result_to_numpy(a), result_to_numpy(b)):
+        if x is None:
+            assert y is None
+        else:
+            np.testing.assert_array_equal(x, y)
+
+
+def test_cuda_engine_on_cpu_equals_scan():
+    """On CPU tensors the kernel wrapper runs its plain version, so the
+    "cuda" engine is the scan engine bit for bit — and launches nothing."""
+    wl = Workload(lam=1.2, mu=0.02, sampler=_sampler)
+    before = bfjs_kernel.launches.count
+    cuda = monte_carlo_policy(wl, seeds=[0, 1, 2], engine="cuda",
+                              device="cpu", strict=True, **CFG)
+    scan = monte_carlo_policy(wl, [0, 1, 2], engine="scan", device="cpu",
+                              **CFG)
+    assert bfjs_kernel.launches.count == before
+    assert cuda.queue_len.shape == (3, 80) and cuda.dropped.shape == (3,)
+    _equal(cuda, scan)
+
+
+def test_run_policy_is_one_member_of_the_ensemble():
+    wl = Workload(lam=1.2, mu=0.02, sampler=_sampler)
+    ens = monte_carlo_policy(wl, seeds=[5, 9], device="cpu", **CFG)
+    one = run_policy(wl, 9, device="cpu", **CFG)
+    assert one.queue_len.shape == (80,)
+    _equal(one, type(ens)(*(None if x is None else x[1] for x in ens)))
+    assert int(ens.departed[:, -1].min()) > 0
+
+
+def test_run_policy_streams_matches_jax():
+    def j_sampler(key, n):
+        return jax.random.uniform(key, (n,), minval=0.05, maxval=0.5)
+    st = j_make_streams(jax.random.PRNGKey(4), 1.5, 0.02, j_sampler, L=4,
+                        K=6, A_max=6, horizon=80)
+    ref = j_rps(st, policy="bfjs", engine="scan", L=4, K=6, Qcap=64,
+                A_max=6)
+    got = run_policy_streams(
+        streams_from_numpy(st.n, st.sizes, st.durs, device="cpu"),
+        policy="bfjs", engine="cuda", L=4, K=6, Qcap=64, A_max=6)
+    got = result_to_numpy(got)
+    for f in ("queue_len", "departed", "dropped", "truncated"):
+        np.testing.assert_array_equal(getattr(got, f),
+                                      np.asarray(getattr(ref, f)))
+    np.testing.assert_allclose(got.occupancy, np.asarray(ref.occupancy),
+                               rtol=1e-6)
+
+
+def test_registry_and_unported_options():
+    wl = Workload(lam=1.0, mu=0.1, sampler=_sampler)
+    assert available_policies() == ("bfjs",)
+    with pytest.raises(ValueError, match="unknown policy"):
+        run_policy(wl, policy="vqs", device="cpu", **CFG)
+    with pytest.raises(ValueError, match="unknown engine"):
+        run_policy(wl, engine="pallas", device="cpu", **CFG)
+    with pytest.raises(NotImplementedError, match="threefry"):
+        run_policy(wl, engine="reference", device="cpu", **CFG)
+    for kw, item in ((dict(mesh=object()), "item 9"),
+                     (dict(chunk=10), "item 7")):
+        with pytest.raises(NotImplementedError, match=item):
+            monte_carlo_policy(wl, seeds=[0], device="cpu", **kw, **CFG)
+    st = streams_from_numpy(np.zeros(4), np.zeros((4, 6)),
+                            np.ones((4, 30)), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        run_policy_streams(st, audit=True, L=4, K=6, Qcap=8, A_max=6)
+    with pytest.raises(TypeError, match="seeds="):
+        monte_carlo_policy(wl, device="cpu", **CFG)
+    with pytest.raises(TypeError, match="Workload"):
+        run_policy(0, device="cpu", **CFG)
+    with pytest.raises(ValueError, match="single-resource"):
+        run_policy(Workload(lam=1.0, mu=0.1, sampler=_sampler,
+                            num_resources=2), device="cpu", **CFG)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """device=None means CUDA; without a card it raises and names the
+    way out — it never moves to the CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wl = Workload(lam=1.0, mu=0.1, sampler=_sampler)
+    for call in (lambda: run_policy(wl, **CFG),
+                 lambda: monte_carlo_policy(wl, seeds=[0], **CFG),
+                 lambda: streams_from_numpy(np.zeros(2), np.zeros((2, 1)),
+                                            np.zeros((2, 1)))):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+
+
+def test_import_leaves_jax_and_repro_unloaded():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
