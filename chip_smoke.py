@@ -7,18 +7,23 @@ Builds the hand-written kernels from ``src/repro_torch/kernels/csrc``,
 holds each against its plain PyTorch version on the card, then drives the
 port's paths through the entry points a user calls:
 
-  * main path: ``monte_carlo_policy(..., policy="bfjs", engine="cuda")`` — a
-    128-member Monte-Carlo ensemble of the paper's 1000-server cluster under
-    the Fig. 4b job-size law U[0.1, 0.9] at offered load 0.85, 1000 slots;
+  * bfjs path: ``monte_carlo_policy(..., policy="bfjs", engine="cuda")`` —
+    a 128-member Monte-Carlo ensemble of the paper's 1000-server cluster
+    under the Fig. 4b job-size law U[0.1, 0.9] at offered load 0.85, 1000
+    slots;
+  * vqs and vqs-bf paths: the same cluster and law with that panel's
+    J = 4, K = 16, Qcap = 1024, at offered load 0.6 (inside the proven
+    2/3 region of both policies), 128 members, 1000 slots;
   * best-fit path: ``best_fit_batched`` on 128 clusters of 1000 servers
     with bursts of 4096 jobs.
 
-Each path runs with the kernels' launch counters set to 0 just before it and
-read just after.  The second-to-last line of stdout is a JSON object with
-one entry per kernel (launches, error against the plain version, kernel,
-plain and bound times); the last line is ``{"ok": true, "device": ...}``.
-Any failed phase raises, and the script exits non-zero without a result —
-also when no CUDA device is present.
+Each path runs with every kernel's launch counter set to 0 just before it
+and read just after; it must launch its own kernel and no other.  The
+second-to-last line of stdout is a JSON object with one entry per kernel
+(launches, error against the plain version, kernel, plain and bound
+times); the last line is ``{"ok": true, "device": ...}``.  Any failed phase
+raises, and the script exits non-zero without a result — also when no
+CUDA device is present.
 """
 from __future__ import annotations
 
@@ -40,6 +45,11 @@ sys.path.insert(0, str(ROOT / "src"))
 #: cores (the kernels' compares and selects).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+#: Members of the full-width streams the VQS-family kernels are held
+#: against their plain versions on (members are independent, so the first
+#: eight of the ensemble are an exact sub-problem).
+PLAIN_MEMBERS = 8
 
 
 def gpu_name_and_power_limit() -> str:
@@ -64,6 +74,16 @@ def time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def wall_ms(fn) -> tuple[float, object]:
+    """Host-clock milliseconds of one synchronised call, and its result."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -91,6 +111,19 @@ def require_equal(what: str, a, b) -> None:
                                  f"version (max abs err {max_abs_err(a, b)})")
 
 
+def members(res, g: int):
+    """The first ``g`` members of a batched result."""
+    return type(res)(*(x[:g] if x is not None else None for x in res))
+
+
+def placements(streams, res) -> tuple[int, int]:
+    """(arrivals, placements) of a run: placements are the landed arrivals
+    minus the jobs still queued at the end."""
+    arrivals = int(streams.n.sum())
+    landed = arrivals - int(res.dropped.sum())
+    return arrivals, landed - int(res.queue_len[:, -1].sum())
+
+
 def bfjs_work(streams, res, L, K, Qcap, A_max) -> tuple[float, float]:
     """Bytes and operations the BF-J/S slot engine needs on these inputs.
 
@@ -101,12 +134,54 @@ def bfjs_work(streams, res, L, K, Qcap, A_max) -> tuple[float, float]:
     residuals and one over the queue.  Placements are counted from this
     run: landed arrivals minus the jobs still queued at the end."""
     G, T = streams.n.shape
-    arrivals = int(streams.n.sum())
-    landed = arrivals - int(res.dropped.sum())
-    placed = landed - int(res.queue_len[:, -1].sum())
+    arrivals, placed = placements(streams, res)
     nbytes = 4 * (G * T + arrivals + placed + 3 * G * T + 2 * G)
     ops = G * T * (L * K + Qcap) + placed * (L + Qcap)
     return nbytes, ops
+
+
+def vqs_work(streams, res, L, J, scan_queue: bool) -> tuple[float, float]:
+    """Bytes and operations a VQS-family slot engine needs on these inputs.
+
+    Bytes: the counts, and the size and duration of each arrival read once;
+    the three (G, T) trajectories and two counters written once.
+    Operations: per slot, one departure/visit test per server; per arrival,
+    its 2J-way classification; per placement, one pass over the servers to
+    find the placer.  VQS-BF's largest-fit pops also pass over the queued
+    jobs once a slot (``scan_queue``: the sum of this run's queue
+    lengths)."""
+    G, T = streams.n.shape
+    arrivals, placed = placements(streams, res)
+    nbytes = 4 * (G * T + 2 * arrivals + 3 * G * T + 2 * G)
+    ops = G * T * L + arrivals * 2 * J + placed * L
+    if scan_queue:
+        ops += int(res.queue_len.sum())
+    return nbytes, ops
+
+
+def check_path(tag: str, res, G, T, L, offered, counters, own) -> float:
+    """The invariants every Monte-Carlo path must keep; returns the
+    utilisation over slots 500..T-1."""
+    import torch
+    for name, counter in counters.items():
+        if name == own and counter.count < 1:
+            raise AssertionError(f"{tag}: did not launch the {own} kernel")
+        if name != own and counter.count:
+            raise AssertionError(f"{tag}: launched {name} unexpectedly")
+    qlen, occ, dep = res.queue_len, res.occupancy, res.departed
+    if qlen.shape != (G, T) or not torch.isfinite(occ).all():
+        raise AssertionError(f"{tag}: bad result shape or values")
+    if int(qlen.min()) < 0:
+        raise AssertionError(f"{tag}: negative queue length")
+    if bool((dep[:, 1:] < dep[:, :-1]).any()):
+        raise AssertionError(f"{tag}: departures not monotone")
+    if float(occ.min()) < 0 or float(occ.max()) > L:
+        raise AssertionError(f"{tag}: occupancy outside [0, L]")
+    util = float(occ[:, 500:].double().mean()) / L
+    if abs(util - offered) > 0.03:
+        raise AssertionError(f"{tag}: utilisation {util:.4f} not within "
+                             f"0.03 of the offered load {offered:.4f}")
+    return util
 
 
 def main() -> int:
@@ -129,8 +204,21 @@ def main() -> int:
     from repro_torch.kernels.bfjs.ref import bfjs_ref
     from repro_torch.kernels.common import (GracefulDegradationWarning,
                                             ensemble_plane_bytes)
+    from repro_torch.kernels.vqs import vqs as vqs_kernel
+    from repro_torch.kernels.vqs.ref import vqs_ref
+    from repro_torch.kernels.vqs_bf import vqs_bf as vqs_bf_kernel
+    from repro_torch.kernels.vqs_bf.ref import vqs_bf_ref
     warnings.simplefilter("error", GracefulDegradationWarning)
+    counters = {"best_fit": bf_kernel.launches,
+                "bfjs": bfjs_kernel.launches,
+                "vqs": vqs_kernel.launches,
+                "vqs_bf": vqs_bf_kernel.launches}
 
+    def reset_counters():
+        for c in counters.values():
+            c.reset()
+
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = gpu_name_and_power_limit()
     print(f"card: {card}")
@@ -186,73 +274,72 @@ def main() -> int:
               f"{int(got.truncated.sum())}, dropped {int(got.dropped.sum())}")
         del st, got, ref
 
-    # -- 3. main path at full width -----------------------------------------
+    # -- 3. vqs and vqs_bf kernels vs plain at the bench shape -------------
+    # (benchmarks/sched_micro.py's VQS ensemble config; Qcap = 8192 puts
+    # the rings in the global workspace)
+    Gb, Lb, Kb, Qb, Ab, Tb, Jb = 8, 16, 24, 8192, 8, 2000, 4
+    st = ensemble_streams(range(args.seed, args.seed + Gb), 1.5, 0.01,
+                          uniform(0.05, 0.5), L=Lb, K=Kb, A_max=Ab,
+                          horizon=Tb, device=dev)
+    for name, fn, plain, extra in (
+            ("vqs", vqs_kernel.vqs_cuda, vqs_ref,
+             dict(work_steps=Ab + 4, drain=16)),
+            ("vqs_bf", vqs_bf_kernel.vqs_bf_cuda, vqs_bf_ref,
+             dict(work_steps=64))):
+        kw = dict(J=Jb, L=Lb, K=Kb, Qcap=Qb, A_max=Ab, **extra)
+        got = fn(st.n, st.sizes, st.durs, **kw)
+        torch.cuda.synchronize()
+        require_equal(f"{name} bench", got,
+                      plain(st.n, st.sizes, st.durs, **kw))
+        print(f"{name} bench G={Gb} J={Jb} L={Lb} K={Kb} Qcap={Qb} "
+              f"A_max={Ab} T={Tb}: equal to plain (exact); truncated "
+              f"{int(got.truncated.sum())}, dropped {int(got.dropped.sum())}")
+    del st, got
+
+    # -- 4. bfjs path at full width -------------------------------------------
     Gm, Lm, Km, Qm, Am, Tm = 128, 1000, 16, 4096, 48, 1000
     mu, size_mean = 0.01, 0.5
     lam = 0.85 * Lm * mu / size_mean           # Fig. 4b rule at alpha=0.85
     wl = Workload(lam=lam, mu=mu, sampler=uniform(0.1, 0.9))
     seeds = range(args.seed, args.seed + Gm)
     cfg = dict(L=Lm, K=Km, Qcap=Qm, A_max=Am, horizon=Tm)
-    bfjs_kernel.launches.reset()
-    bf_kernel.launches.reset()
-    torch.cuda.synchronize()
+    reset_counters()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    res = monte_carlo_policy(wl, seeds=seeds, policy="bfjs", engine="cuda",
-                             strict=True, device=dev, **cfg)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    wall, res = wall_ms(lambda: monte_carlo_policy(
+        wl, seeds=seeds, policy="bfjs", engine="cuda", strict=True,
+        device=dev, **cfg))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     planes_gb = ensemble_plane_bytes(Gm, Tm, stream_lanes=1 + 2 * Am + Lm * Km,
                                      out_lanes=3) / 1e9
     bfjs_launches = bfjs_kernel.launches.count
-    if bfjs_launches < 1:
-        raise AssertionError("main path did not launch the bfjs kernel")
-    if bf_kernel.launches.count:
-        raise AssertionError("main path launched best_fit unexpectedly")
-    qlen, occ, dep = res.queue_len, res.occupancy, res.departed
-    if qlen.shape != (Gm, Tm) or not torch.isfinite(occ).all():
-        raise AssertionError("main path: bad result shape or values")
-    if int(qlen.min()) < 0:
-        raise AssertionError("main path: negative queue length")
-    if bool((dep[:, 1:] < dep[:, :-1]).any()):
-        raise AssertionError("main path: departures not monotone")
-    if float(occ.min()) < 0 or float(occ.max()) > Lm:
-        raise AssertionError("main path: occupancy outside [0, L]")
     offered = lam * size_mean / (mu * Lm)
-    util = float(occ[:, 500:].double().mean()) / Lm
-    if abs(util - offered) > 0.03:
-        raise AssertionError(f"main path: utilisation {util:.4f} not within "
-                             f"0.03 of the offered load {offered:.4f}")
-    print(f"main path bfjs G={Gm} L={Lm} K={Km} Qcap={Qm} A_max={Am} "
-          f"T={Tm} lam={lam}: wall {wall_ms:.1f} ms (streams + kernel), "
-          f"{Gm * Tm / wall_ms * 1e3:.0f} ensemble-slots/s; utilisation "
+    util = check_path("bfjs path", res, Gm, Tm, Lm, offered, counters,
+                      "bfjs")
+    qlen = res.queue_len
+    print(f"bfjs path G={Gm} L={Lm} K={Km} Qcap={Qm} A_max={Am} "
+          f"T={Tm} lam={lam}: wall {wall:.1f} ms (streams + kernel), "
+          f"{Gm * Tm / wall * 1e3:.0f} ensemble-slots/s; utilisation "
           f"{util:.4f} vs offered {offered:.4f}; mean queue "
           f"{float(qlen.double().mean()):.2f}; dropped "
           f"{int(res.dropped.sum())}; truncated {int(res.truncated.sum())}; "
           f"bfjs launches {bfjs_launches}; device memory peak "
           f"{peak_gb:.2f} GB (streams + trajectories {planes_gb:.2f} GB)")
 
-    # the main path's kernel call again, against the plain version on the
-    # same streams (launches here are for comparison and are not counted)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = ensemble_streams(seeds, lam, mu, uniform(0.1, 0.9), L=Lm, K=Km,
-                          A_max=Am, horizon=Tm, device=dev)
-    torch.cuda.synchronize()
-    streams_ms = (time.perf_counter() - t0) * 1e3
+    # the path's kernel call again, against the plain version on the same
+    # streams (launches here are for comparison and are not counted)
+    streams_ms, st = wall_ms(lambda: ensemble_streams(
+        seeds, lam, mu, uniform(0.1, 0.9), L=Lm, K=Km, A_max=Am,
+        horizon=Tm, device=dev))
     kw = dict(L=Lm, K=Km, Qcap=Qm, A_max=Am, work_steps=Am + 4)
     got = bfjs_kernel.bfjs_cuda(st.n, st.sizes, st.durs, **kw)
-    require_equal("bfjs main path vs monte_carlo_policy", got, res)
+    require_equal("bfjs path vs monte_carlo_policy", got, res)
     bfjs_ms = time_ms(lambda: bfjs_kernel.bfjs_cuda(st.n, st.sizes, st.durs,
                                                     **kw), reps=3)
-    t0 = time.perf_counter()
-    ref = bfjs_ref(st.n, st.sizes, st.durs, **kw)
-    torch.cuda.synchronize()
-    bfjs_plain_ms = (time.perf_counter() - t0) * 1e3
-    require_equal("bfjs main path", got, ref)
+    bfjs_plain_ms, ref = wall_ms(lambda: bfjs_ref(st.n, st.sizes, st.durs,
+                                                  **kw))
+    require_equal("bfjs path", got, ref)
     bfjs_bound, bfjs_by = bound(*bfjs_work(st, got, Lm, Km, Qm, Am))
-    print(f"bfjs main-path shapes: equal to plain (exact); streams "
+    print(f"bfjs path shapes: equal to plain (exact); streams "
           f"{streams_ms:.1f} ms, kernel {bfjs_ms:.1f} ms, plain "
           f"{bfjs_plain_ms:.1f} ms, bound {bfjs_bound:.4f} ms ({bfjs_by})")
     rows["bfjs"] = dict(
@@ -264,13 +351,79 @@ def main() -> int:
         bound_by=bfjs_by, library_ms=None)
     del st, got, ref, res
 
-    # -- 4. best-fit path ----------------------------------------------------
-    bf_kernel.launches.reset()
-    bfjs_kernel.launches.reset()
+    # -- 5. vqs and vqs-bf paths at full width --------------------------------
+    Jv, Qv = 4, 1024
+    lam_v = 0.6 * Lm * mu / size_mean          # offered load 0.6: lam = 12
+    wl_v = Workload(lam=lam_v, mu=mu, sampler=uniform(0.1, 0.9))
+    cfg_v = dict(J=Jv, L=Lm, K=Km, Qcap=Qv, A_max=Am, horizon=Tm)
+    for policy, name, fn, plain, source, replaces in (
+            ("vqs", "vqs", vqs_kernel.vqs_cuda, vqs_ref,
+             "src/repro_torch/kernels/csrc/vqs.cu",
+             "src/repro/kernels/vqs/vqs.py:42"),
+            ("vqs-bf", "vqs_bf", vqs_bf_kernel.vqs_bf_cuda, vqs_bf_ref,
+             "src/repro_torch/kernels/csrc/vqs_bf.cu",
+             "src/repro/kernels/vqs_bf/vqs_bf.py:45")):
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        wall, res = wall_ms(lambda: monte_carlo_policy(
+            wl_v, seeds=seeds, policy=policy, engine="cuda", strict=True,
+            device=dev, **cfg_v))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = counters[name].count
+        offered = lam_v * size_mean / (mu * Lm)
+        util = check_path(f"{policy} path", res, Gm, Tm, Lm, offered,
+                          counters, name)
+        if int(res.dropped.sum()):
+            raise AssertionError(f"{policy} path: {int(res.dropped.sum())} "
+                                 "arrivals dropped")
+        print(f"{policy} path G={Gm} J={Jv} L={Lm} K={Km} Qcap={Qv} "
+              f"A_max={Am} T={Tm} lam={lam_v}: wall {wall:.1f} ms (streams "
+              f"+ kernel), {Gm * Tm / wall * 1e3:.0f} ensemble-slots/s; "
+              f"utilisation {util:.4f} vs offered {offered:.4f}; mean queue "
+              f"{float(res.queue_len.double().mean()):.2f}; dropped 0; "
+              f"truncated {int(res.truncated.sum())}; {name} launches "
+              f"{launches}; device memory peak {peak_gb:.2f} GB")
+
+        streams_ms, st = wall_ms(lambda: ensemble_streams(
+            seeds, lam_v, mu, uniform(0.1, 0.9), L=Lm, K=Km, A_max=Am,
+            horizon=Tm, device=dev))
+        kw = dict(J=Jv, L=Lm, K=Km, Qcap=Qv, A_max=Am, work_steps=Am + 4)
+        if name == "vqs":
+            kw["drain"] = 16
+        got = fn(st.n, st.sizes, st.durs, **kw)
+        require_equal(f"{policy} path vs monte_carlo_policy", got, res)
+        ms = time_ms(lambda: fn(st.n, st.sizes, st.durs, **kw), reps=3)
+        g = PLAIN_MEMBERS
+        sub = (st.n[:g], st.sizes[:g], st.durs[:g])
+        plain_ms, ref = wall_ms(lambda: plain(*sub, **kw))
+        require_equal(f"{policy} path, first {g} members", members(got, g),
+                      ref)
+        sub_ms = time_ms(lambda: fn(*sub, **kw), reps=3)
+        b_ms, b_by = bound(*vqs_work(st, got, Lm, Jv, name == "vqs_bf"))
+        shape = (Jv, Lm, Km, Qv, Am)
+        ws = getattr(vqs_kernel.load(name), f"{name}_workspace_bytes")
+        print(f"{policy} path shapes: equal to plain on members 0..{g - 1} "
+              f"(exact); streams {streams_ms:.1f} ms, kernel {ms:.1f} ms "
+              f"({Gm} members) / {sub_ms:.1f} ms ({g} members), plain "
+              f"{plain_ms:.1f} ms ({g} members), bound {b_ms:.4f} ms "
+              f"({b_by}); shared memory "
+              f"{vqs_kernel.shared_bytes(name, *shape)} B a block, "
+              f"workspace {ws(*shape)} B a member")
+        rows[name] = dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches,
+            max_abs_err=max_abs_err(members(got, g), ref), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, plain_members=g)
+        del st, got, ref, res, sub
+
+    # -- 6. best-fit path ----------------------------------------------------
+    reset_counters()
     assign, new_resid = best_fit_batched(resid, sizes)
     torch.cuda.synchronize()
     bf_launches = bf_kernel.launches.count
-    if bf_launches < 1 or bfjs_kernel.launches.count:
+    if bf_launches < 1 or any(c.count for n, c in counters.items()
+                              if n != "best_fit"):
         raise AssertionError("best-fit path did not launch best_fit alone")
     if int(assign.min()) < -1 or int(assign.max()) >= L \
             or float(new_resid.min()) < 0:
@@ -289,7 +442,10 @@ def main() -> int:
         ms=bf_ms, plain_ms=bf_plain_ms, bound_ms=bf_bound, bound_by=bf_by,
         library_ms=None)
 
-    print(json.dumps({"kernels": [rows["bfjs"], rows["best_fit"]],
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [rows[k] for k in ("bfjs", "vqs", "vqs_bf",
+                                                    "best_fit")],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,8 @@ import torch
 
 from .core.engine.bfjs import BFJSState
 from .core.engine.streams import PolicyResult, SchedStreams
+from .core.engine.vqs import VQSState
+from .core.engine.vqs_bf import VQSBFState
 from .device import resolve_device
 
 _STATE_DTYPES = (torch.float32, torch.int32, torch.float32, torch.int32,
@@ -45,6 +47,35 @@ def bfjs_state_from_numpy(carry, device=None) -> BFJSState:
                          f"got {len(carry)} fields")
     return BFJSState(*(_tensor(x, d, device)
                        for x, d in zip(carry, _STATE_DTYPES)))
+
+
+#: The boolean fields of the VQS-family carries; every other field is int32.
+_VQS_BOOL_FIELDS = ("cfg_k1", "has_cfg", "in_empty", "want", "up_last")
+
+
+def _state_from_numpy(cls, carry, device):
+    """``cls`` (a VQS-family state NamedTuple) from a JAX scan carry in the
+    same field order."""
+    device = resolve_device(device)
+    carry = tuple(carry)
+    if len(carry) != len(cls._fields):
+        raise ValueError(f"expected a {len(cls._fields)}-field carry, "
+                         f"got {len(carry)} fields")
+    return cls(*(_tensor(x, torch.bool if f in _VQS_BOOL_FIELDS
+                         else torch.int32, device)
+                 for f, x in zip(cls._fields, carry)))
+
+
+def vqs_state_from_numpy(carry, device=None) -> VQSState:
+    """:class:`VQSState` from the 21-tuple scan carry of the JAX package's
+    ``run_vqs_streams(..., return_state=True)`` (same field order)."""
+    return _state_from_numpy(VQSState, carry, device)
+
+
+def vqs_bf_state_from_numpy(carry, device=None) -> VQSBFState:
+    """:class:`VQSBFState` from the 23-tuple scan carry of the JAX
+    package's ``run_vqs_bf_streams(..., return_state=True)``."""
+    return _state_from_numpy(VQSBFState, carry, device)
 
 
 def result_to_numpy(res: PolicyResult) -> PolicyResult:

@@ -1,5 +1,6 @@
-"""Accelerator engines of the port: streams, workload, BF-J/S engines and
-the policy registry (torch counterpart of ``repro.core.engine``)."""
+"""Accelerator engines of the port: streams, workload, the BF-J/S, VQS and
+VQS-BF engines and the policy registry (torch counterpart of
+``repro.core.engine``)."""
 from .api import (PolicySpec, available_policies, get_policy,
                   monte_carlo_policy, register_policy, run_policy,
                   run_policy_streams)
@@ -7,10 +8,16 @@ from .bfjs import (BFJSResult, BFJSState, DEFAULT_MAX_REQUEUE, ENGINES,
                    ensemble_streams, initial_state, monte_carlo_bfjs,
                    run_bfjs, run_bfjs_streams, run_bfjs_trace)
 from .ops import (best_fit_place, best_fit_server, first_empty_positions,
-                  largest_fitting_job, row_sum_lr)
+                  k_red_t, largest_fitting_job, max_weight_config,
+                  row_sum_lr, vq_type_of, vq_type_of_grid)
 from .streams import (INF_SLOT, PolicyResult, SchedStreams,
                       fault_plane_from_events, make_fault_plane,
-                      make_streams, resolve_work_steps, with_fault_plane)
+                      make_streams, resolve_work_steps, streams_from_trace,
+                      with_fault_plane)
+from .vqs import (VQSState, monte_carlo_vqs, run_vqs, run_vqs_streams,
+                  run_vqs_trace)
+from .vqs_bf import (VQSBFState, monte_carlo_vqs_bf, run_vqs_bf,
+                     run_vqs_bf_streams, run_vqs_bf_trace)
 from .workload import Workload
 
 __all__ = [
@@ -20,7 +27,11 @@ __all__ = [
     "initial_state",
     "monte_carlo_bfjs", "run_bfjs", "run_bfjs_streams", "run_bfjs_trace",
     "best_fit_place", "best_fit_server", "first_empty_positions",
-    "largest_fitting_job", "row_sum_lr", "INF_SLOT", "PolicyResult",
+    "k_red_t", "largest_fitting_job", "max_weight_config", "row_sum_lr",
+    "vq_type_of", "vq_type_of_grid", "INF_SLOT", "PolicyResult",
     "SchedStreams", "fault_plane_from_events", "make_fault_plane",
-    "make_streams", "resolve_work_steps", "with_fault_plane", "Workload",
+    "make_streams", "resolve_work_steps", "streams_from_trace",
+    "with_fault_plane", "VQSState", "monte_carlo_vqs", "run_vqs",
+    "run_vqs_streams", "run_vqs_trace", "VQSBFState", "monte_carlo_vqs_bf",
+    "run_vqs_bf", "run_vqs_bf_streams", "run_vqs_bf_trace", "Workload",
 ]

@@ -1,16 +1,18 @@
 """Workload-first policy entry points (torch port of
-``repro.core.engine.api``, the BF-J/S slice).
+``repro.core.engine.api``: policies "bfjs", "vqs" and "vqs-bf").
 
     wl = Workload(lam=17.0, mu=0.01, sampler=sampler)
     run_policy(wl, seed, policy="bfjs", engine="cuda", L=1000, ...)
+    run_policy(wl, seed, policy="vqs", engine="cuda", J=4, L=1000, ...)
     run_policy_streams(streams, policy="bfjs", engine="scan", ...)
     monte_carlo_policy(wl, seeds=range(128), policy="bfjs", engine="cuda",
                        ...)
 
 ``engine`` is ``"scan"`` (batched plain torch ops) or ``"cuda"`` (the
-hand-written kernel); "cuda" bit-matches "scan".  Randomness is seeded by
-integers — one per ensemble member — in place of the JAX package's PRNG
-keys.  Entry points run on the card unless ``device="cpu"`` is passed.
+policy's hand-written kernel); "cuda" bit-matches "scan".  Randomness is
+seeded by integers — one per ensemble member — in place of the JAX
+package's PRNG keys.  Entry points run on the card unless
+``device="cpu"`` is passed.
 
 The JAX package's mesh sharding, checkpointed chunks and invariant audit
 are not ported yet; asking for them raises ``NotImplementedError`` naming
@@ -21,9 +23,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from .bfjs import (ENGINES, _REFERENCE_TODO, monte_carlo_bfjs_workload,
-                   run_bfjs_trace, run_bfjs_workload)
+from . import bfjs, vqs
+from .bfjs import (ENGINES, monte_carlo_bfjs_workload, run_bfjs_trace,
+                   run_bfjs_workload)
 from .streams import PolicyResult, SchedStreams
+from .vqs import monte_carlo_vqs_workload, run_vqs_trace, run_vqs_workload
+from .vqs_bf import (monte_carlo_vqs_bf_workload, run_vqs_bf_trace,
+                     run_vqs_bf_workload)
 from .workload import Workload
 
 
@@ -34,6 +40,7 @@ class PolicySpec:
     run: Callable[..., PolicyResult]          # (workload, seed, ...)
     run_streams: Callable[..., PolicyResult]  # (streams, ...)
     monte_carlo: Callable[..., PolicyResult]  # (workload, seeds, ...)
+    reference_todo: str  # why engine="reference" is not ported yet
 
 
 _POLICIES: dict[str, PolicySpec] = {}
@@ -59,9 +66,9 @@ def get_policy(policy: str) -> PolicySpec:
             f"{', '.join(available_policies())}") from None
 
 
-def _check_engine(engine: str) -> None:
+def _check_engine(engine: str, policy: str) -> None:
     if engine == "reference":
-        raise NotImplementedError(_REFERENCE_TODO)
+        raise NotImplementedError(get_policy(policy).reference_todo)
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{', '.join(ENGINES)}")
@@ -89,6 +96,21 @@ register_policy(PolicySpec(
     run=run_bfjs_workload,
     run_streams=run_bfjs_trace,
     monte_carlo=monte_carlo_bfjs_workload,
+    reference_todo=bfjs._REFERENCE_TODO,
+))
+register_policy(PolicySpec(
+    name="vqs",
+    run=run_vqs_workload,
+    run_streams=run_vqs_trace,
+    monte_carlo=monte_carlo_vqs_workload,
+    reference_todo=vqs._REFERENCE_TODO,
+))
+register_policy(PolicySpec(
+    name="vqs-bf",
+    run=run_vqs_bf_workload,
+    run_streams=run_vqs_bf_trace,
+    monte_carlo=monte_carlo_vqs_bf_workload,
+    reference_todo=vqs._REFERENCE_TODO,
 ))
 
 
@@ -104,8 +126,8 @@ def run_policy(workload: Workload, seed: int = 0, *, policy: str = "bfjs",
 
     ``seed`` seeds the stream generator; ``config`` passes through to the
     policy runner (``L``, ``K``, ``Qcap``, ``A_max``, ``horizon``,
-    ``work_steps``, ``device``, ...)."""
-    _check_engine(engine)
+    ``work_steps``, ``device``, and ``J`` for the VQS policies, ...)."""
+    _check_engine(engine, policy)
     _require_workload("run_policy", workload)
     return get_policy(policy).run(workload, seed, engine=engine, **config)
 
@@ -119,7 +141,7 @@ def run_policy_streams(streams: SchedStreams, *, policy: str = "bfjs",
                        **config) -> PolicyResult:
     """Replay explicit streams (one cluster, or an ensemble with a leading
     G axis) through a policy engine, on the streams' device."""
-    _check_engine(engine)
+    _check_engine(engine, policy)
     _not_ported(mesh=mesh, devices=devices, chunk=chunk,
                 checkpoint_dir=checkpoint_dir, resume=resume,
                 stop_after_chunks=stop_after_chunks, audit=audit)
@@ -136,7 +158,7 @@ def monte_carlo_policy(workload: Workload, seeds=None, *,
                        **config) -> PolicyResult:
     """One simulated cluster per integer seed, batched on a leading G axis;
     "cuda" runs the ensemble as the kernel's grid of thread blocks."""
-    _check_engine(engine)
+    _check_engine(engine, policy)
     _require_workload("monte_carlo_policy", workload)
     if seeds is None:
         raise TypeError("monte_carlo_policy needs seeds= (one integer seed "

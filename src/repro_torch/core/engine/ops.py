@@ -1,5 +1,6 @@
 """Primitive scheduling ops shared by the engines (torch port of
-``repro.core.engine.ops``, the BF-J/S subset).
+``repro.core.engine.ops``: the BF-J/S ops and the VQS classifier and
+configuration table).
 
 Every op takes any number of leading batch axes — the ensemble axis that
 the JAX package adds with ``vmap``.  Ties always break to the lowest index.
@@ -7,6 +8,9 @@ the JAX package adds with ``vmap``.  Ties always break to the lowest index.
 from __future__ import annotations
 
 import torch
+
+from ..partition import k_red
+from ..quantize import RES
 
 
 def row_sum_lr(x: torch.Tensor) -> torch.Tensor:
@@ -77,3 +81,51 @@ def largest_fitting_job(queue: torch.Tensor, cap: torch.Tensor) -> torch.Tensor:
     masked = torch.where(fits, queue, torch.full_like(queue, float("-inf")))
     idx = torch.argmax(masked, dim=-1)
     return torch.where(fits.any(-1), idx, -1)
+
+
+def k_red_t(J: int, device=None) -> torch.Tensor:
+    """The reduced configuration set K_RED^(J) as an ``(4J-4, 2J)`` int32
+    tensor on ``device`` (``partition.k_red`` itself is lru-cached)."""
+    return torch.as_tensor(k_red(J), dtype=torch.int32, device=device)
+
+
+def max_weight_config(confs: torch.Tensor, vq_sizes: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """argmax over the rows of ``confs`` of ``<k, Q>`` (paper Eq. 8) with
+    ``np.argmax`` ties (the first maximal row).  ``vq_sizes (..., 2J)``
+    -> (row index ``(...)`` int64, row ``(..., 2J)`` int32)."""
+    w = (confs * vq_sizes.to(torch.int32)[..., None, :]).sum(
+        -1, dtype=torch.int32)
+    c_iota = torch.arange(confs.shape[0], device=confs.device)
+    i = torch.where(w == w.amax(-1, keepdim=True), c_iota,
+                    confs.shape[0]).amin(-1)
+    return i, confs[i]
+
+
+def vq_type_of_grid(g: torch.Tensor, J: int) -> torch.Tensor:
+    """Partition-I type of integer grid sizes (exact).
+
+    Comparison for comparison the JAX ``vq_type_of_grid``: ``m = #{k in
+    1..J : g <= RES >> k}`` clipped to ``J-1``, even/odd split by ``3g >
+    2*(RES >> m)``, and the ``g <= RES >> J`` tail mapping to the last
+    type ``2J - 1``."""
+    g = g.to(torch.int32)
+    bounds = torch.tensor([RES >> k for k in range(1, J + 1)],
+                          dtype=torch.int32, device=g.device)
+    m = torch.clamp_max((g[..., None] <= bounds).sum(-1, dtype=torch.int32),
+                        J - 1)
+    upper = torch.full_like(m, RES) >> m
+    t = torch.where(3 * g > 2 * upper, 2 * m, 2 * m + 1)
+    return torch.where(g <= (RES >> J), 2 * J - 1, t).to(torch.int32)
+
+
+def to_grid_t(sizes: torch.Tensor) -> torch.Tensor:
+    """Float sizes to the integer grid, ``max(round(size * RES), 1)`` in
+    float32 (round half to even), as the engines quantize in-loop."""
+    return torch.clamp_min(torch.round(sizes * RES), 1.0).to(torch.int32)
+
+
+def vq_type_of(sizes: torch.Tensor, J: int) -> torch.Tensor:
+    """Partition-I type of float sizes in (0, 1]: quantized with
+    :func:`to_grid_t`, then classified by the exact integer rule."""
+    return vq_type_of_grid(to_grid_t(sizes), J)

@@ -165,6 +165,82 @@ def make_streams(generator: torch.Generator, lam: float, mu: float,
     return SchedStreams(n, sizes, durs, up)
 
 
+def streams_from_trace(trace_or_slots, sizes=None, durations=None, *,
+                       horizon: int | None = None, A_max: int | None = None,
+                       device=None) -> SchedStreams:
+    """Build ``SchedStreams`` that replay a workload trace exactly.
+
+    Takes the raw arrays ``(arrival_slots, sizes, durations)`` or any object
+    with ``arrival_slots`` and ``durations`` attributes plus either
+    ``sizes`` or ``cpu`` and ``mem`` (a two-resource trace, collapsed to
+    ``max(cpu, mem)`` as the paper does).  As the JAX
+    ``streams_from_trace``: jobs are stably sorted by arrival slot, sizes
+    are quantized with ``quantize.to_grid`` and stored as the exact grid
+    value ``g / RES`` (float32 holds it exactly, so the engines' in-loop
+    quantization recovers ``g``), and durations are clamped to >= 1 slot.
+
+    The duration plane holds only the per-arrival lanes, ``(T, A_max)``:
+    every job's duration travels with the job, the semantics of the VQS
+    policies.  The BF-J/S engines need a sequential-draw region a trace
+    cannot provide and reject these streams.  ``A_max`` defaults to the
+    trace's peak arrivals per slot; a smaller ``A_max`` raises instead of
+    dropping trace jobs."""
+    from ..quantize import RES, to_grid
+
+    if sizes is None or hasattr(trace_or_slots, "arrival_slots"):
+        trace = trace_or_slots
+        if sizes is not None or durations is not None:
+            raise TypeError(
+                "pass either a trace object or (arrival_slots, sizes, "
+                "durations), not both")
+        arrival_slots = trace.arrival_slots
+        durations = trace.durations
+        sizes = trace.sizes if hasattr(trace, "sizes") \
+            else np.maximum(trace.cpu, trace.mem)
+    else:
+        arrival_slots = trace_or_slots
+    device = resolve_device(device)
+
+    arrival_slots = np.asarray(arrival_slots)
+    order = np.argsort(arrival_slots, kind="stable")
+    arrival_slots = arrival_slots[order].astype(np.int64)
+    sizes = np.asarray(sizes)
+    if sizes.ndim != 1:
+        raise ValueError(f"sizes must be (N,), got {sizes.shape}: the VQS "
+                         "policies take scalar sizes")
+    g = to_grid(sizes[order])
+    durations = np.maximum(np.asarray(durations)[order].astype(np.int64), 1)
+    if horizon is None:
+        if len(arrival_slots) == 0:
+            raise ValueError(
+                "empty trace and no horizon: pass horizon= explicitly")
+        horizon = int(arrival_slots[-1]) + 1
+
+    in_h = (arrival_slots >= 0) & (arrival_slots < horizon)
+    counts = np.bincount(arrival_slots[in_h], minlength=horizon)[:horizon]
+    peak = int(counts.max()) if len(counts) else 0
+    if A_max is None:
+        A_max = max(peak, 1)
+    elif peak > A_max:
+        raise ValueError(
+            f"trace has {peak} arrivals in one slot > A_max={A_max}; "
+            "raise A_max (streams never drop trace jobs silently)")
+
+    size_arr = np.zeros((horizon, A_max), dtype=np.float32)
+    dur_arr = np.ones((horizon, A_max), dtype=np.int32)
+    slot = arrival_slots[in_h]
+    # lane[i] = index of job i within its slot (jobs are slot-sorted)
+    lane = np.arange(len(slot)) - np.repeat(np.cumsum(counts) - counts,
+                                            counts)
+    size_arr[slot, lane] = (g[in_h].astype(np.float64) / RES).astype(
+        np.float32)
+    dur_arr[slot, lane] = durations[in_h]
+    return SchedStreams(torch.as_tensor(counts.astype(np.int32),
+                                        device=device),
+                        torch.as_tensor(size_arr, device=device),
+                        torch.as_tensor(dur_arr, device=device))
+
+
 def resolve_work_steps(work_steps: int | None, A_max: int) -> int:
     """Default bound of the per-slot placement work lists: enough for every
     landed arrival plus a burst of refills; the ``truncated`` counter

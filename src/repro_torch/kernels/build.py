@@ -10,14 +10,22 @@ then loaded with ``ctypes``.  The file name carries a hash of the source,
 so an edited kernel (or shared header) is rebuilt and a built one is reused.  ``build_all``
 starts one ``nvcc`` per source at once, so the wall time of a cold build is
 that of the slowest file.
+
+    python -m repro_torch.kernels.build [--ptxas]
+
+builds every kernel; ``--ptxas`` also compiles each source once more with
+``-Xptxas -v`` and prints the assembler's registers, shared memory and
+spill counts per kernel.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -111,3 +119,40 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{what} failed: CUDA error {err} "
                            f"({fn(err).decode()})")
+
+
+def ptxas_report() -> dict[str, str]:
+    """The ``ptxas -v`` lines (registers, shared memory, spills) of each
+    kernel source, compiled in parallel into a throwaway library."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = {n: subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(Path(tmp) / f"{n}.so"), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in names}
+        logs = {n: p.communicate()[0] for n, p in procs.items()}
+    for n, p in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on csrc/{n}.cu:\n{logs[n]}")
+    keep = ("Compiling entry function", "registers", "spill")
+    return {n: "\n".join(line.strip() for line in log.splitlines()
+                         if any(k in line for k in keep))
+            for n, log in logs.items()}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description="Build the CUDA kernels.")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print registers and spills of every kernel")
+    args = ap.parse_args()
+    for name, path in build_all().items():
+        print(f"{name}: {path.name}")
+    if args.ptxas:
+        for name, report in ptxas_report().items():
+            print(f"--- {name}\n{report}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Shared plumbing for the port's scheduler kernels.
 
-Every kernel family (``kernels/bfjs``, ``kernels/best_fit``) follows the
+Every kernel family (``kernels/bfjs``, ``kernels/vqs``, ...) follows the
 same layout: ``csrc/<name>.cu`` holds the hand-written CUDA kernel,
 ``<name>.py`` its ctypes wrapper and launch counter, ``ref.py`` the plain
 PyTorch version, ``ops.py`` the public entry point.  A wrapper launches the
@@ -48,8 +48,8 @@ def cuda_precheck(kernel: str, *, nbytes: int, fault_plane: bool = False,
     :data:`SMEM_LIMIT_BYTES` — either raises ``ValueError``
     (``strict=True``) or emits a loud :class:`GracefulDegradationWarning`
     and returns False, so the caller runs the scan engine on the same
-    device.  A kernel that fails to build or launch is not gated here: that
-    always raises."""
+    device.  A kernel that fails to build or launch, or a shape it cannot
+    hold, is not gated here: that always raises."""
     reason = None
     if fault_plane:
         reason = (f"kernel {kernel!r} does not implement fault-plane "

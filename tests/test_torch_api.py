@@ -80,13 +80,21 @@ def test_run_policy_streams_matches_jax():
 
 def test_registry_and_unported_options():
     wl = Workload(lam=1.0, mu=0.1, sampler=_sampler)
-    assert available_policies() == ("bfjs",)
+    assert available_policies() == ("bfjs", "vqs", "vqs-bf")
     with pytest.raises(ValueError, match="unknown policy"):
-        run_policy(wl, policy="vqs", device="cpu", **CFG)
+        run_policy(wl, policy="bfjs-mr", device="cpu", **CFG)
     with pytest.raises(ValueError, match="unknown engine"):
         run_policy(wl, engine="pallas", device="cpu", **CFG)
     with pytest.raises(NotImplementedError, match="threefry"):
         run_policy(wl, engine="reference", device="cpu", **CFG)
+    for policy in ("vqs", "vqs-bf"):
+        with pytest.raises(NotImplementedError, match="item 4a"):
+            run_policy(wl, policy=policy, engine="reference", device="cpu",
+                       **CFG)
+        with pytest.raises(ValueError, match="single-resource"):
+            run_policy(Workload(lam=1.0, mu=0.1, sampler=_sampler,
+                                num_resources=2), policy=policy,
+                       device="cpu", **CFG)
     for kw, item in ((dict(mesh=object()), "item 9"),
                      (dict(chunk=10), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
@@ -127,9 +135,44 @@ def test_import_leaves_jax_and_repro_unloaded():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "for m in ('core.engine.vqs', 'core.engine.vqs_bf', "
+        "'kernels.vqs.vqs', 'kernels.vqs_bf.vqs_bf', 'core.partition'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(SRC)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_vqs_policies_match_jax_through_the_registry():
+    """run_policy_streams(policy="vqs"|"vqs-bf") on JAX streams equals the
+    JAX registry on every field; BF-J/S keeps rejecting trace-shaped
+    streams, which the VQS policies replay."""
+    from repro_torch.core.engine import streams_from_trace
+
+    def j_sampler(key, n):
+        return jax.random.uniform(key, (n,), minval=0.05, maxval=0.9)
+    st = j_make_streams(jax.random.PRNGKey(2), 1.0, 0.03, j_sampler, L=4,
+                        K=8, A_max=5, horizon=80)
+    kw = dict(J=3, L=4, K=8, Qcap=48, A_max=5)
+    port_st = streams_from_numpy(st.n, st.sizes, st.durs, device="cpu")
+    for policy in ("vqs", "vqs-bf"):
+        ref = j_rps(st, policy=policy, engine="scan", **kw)
+        got = result_to_numpy(run_policy_streams(port_st, policy=policy,
+                                                 engine="scan", **kw))
+        for f in ("queue_len", "occupancy", "departed", "dropped",
+                  "truncated"):
+            np.testing.assert_array_equal(getattr(got, f),
+                                          np.asarray(getattr(ref, f)))
+    rng = np.random.default_rng(0)
+    slots = np.sort(rng.integers(0, 30, 40))
+    trace = streams_from_trace(slots, rng.uniform(0.05, 0.9, 40),
+                               rng.integers(1, 20, 40), device="cpu")
+    with pytest.raises(ValueError, match="Trace-built streams"):
+        run_policy_streams(trace, policy="bfjs", L=4, K=8, Qcap=48,
+                           A_max=int(trace.sizes.shape[1]))
+    tk = dict(J=3, L=4, K=8, Qcap=48, A_max=int(trace.sizes.shape[1]))
+    res = run_policy_streams(trace, policy="vqs", **tk)
+    assert int(res.departed[-1]) > 0 and int(res.dropped) == 0

@@ -12,12 +12,19 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.engine import (Workload,  # noqa: E402
-                                     ensemble_streams, monte_carlo_policy)
+                                     ensemble_streams, monte_carlo_policy,
+                                     streams_from_trace)
 from repro_torch.kernels.best_fit import best_fit as bf_kernel  # noqa: E402
 from repro_torch.kernels.best_fit.ref import \
     best_fit_ref_batched  # noqa: E402
 from repro_torch.kernels.bfjs import bfjs as bfjs_kernel  # noqa: E402
 from repro_torch.kernels.bfjs.ref import bfjs_ref  # noqa: E402
+from repro_torch.kernels.vqs import vqs as vqs_kernel  # noqa: E402
+from repro_torch.kernels.vqs.ref import vqs_ref  # noqa: E402
+from repro_torch.kernels.vqs_bf import vqs_bf as vqs_bf_kernel  # noqa: E402
+from repro_torch.kernels.vqs_bf.ref import vqs_bf_ref  # noqa: E402
+
+FIELDS = ("queue_len", "occupancy", "departed", "dropped", "truncated")
 
 pytestmark = pytest.mark.cuda
 
@@ -84,4 +91,117 @@ def test_monte_carlo_cuda_engine_equals_scan_on_card(cuda):
     assert bfjs_kernel.launches.count == before + 1
     ref = monte_carlo_policy(wl, seeds=[1, 2, 3], engine="scan", **cfg)
     for f in ("queue_len", "occupancy", "departed", "dropped", "truncated"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+# (G, J, L, K, Qcap, A_max, T, lam, mu, W): small shapes, J = 2, overload
+# (drops and truncation), K < 2^J (K-overflow), more servers than threads,
+# rings in the global workspace (J = 7, Qcap = 4096), J = 10 (36 K_RED rows,
+# 20 queues: more than a warp and a block's warps), and the full-width
+# L = 1000 shape
+VQS_CASES = [
+    (2, 3, 4, 8, 48, 5, 120, 1.0, 0.03, None),
+    (2, 2, 3, 6, 32, 4, 180, 1.0, 0.03, None),
+    (2, 3, 3, 8, 8, 6, 150, 4.0, 0.01, 2),
+    (2, 3, 4, 3, 48, 6, 150, 1.5, 0.03, None),
+    (2, 4, 600, 16, 512, 24, 80, 8.0, 0.02, None),
+    (2, 7, 16, 128, 4096, 8, 150, 3.0, 0.02, None),
+    (2, 10, 8, 64, 256, 8, 150, 3.0, 0.02, None),
+    (2, 4, 1000, 16, 1024, 48, 200, 12.0, 0.01, None),
+]
+
+
+def _vqs_case(kernel, ref, cuda, G, J, L, K, Qcap, A_max, T, lam, mu, W,
+              sizes=(0.05, 0.9), **extra):
+    st = ensemble_streams(range(G), lam, mu, _sampler(*sizes), L=L, K=K,
+                          A_max=A_max, horizon=T, device=cuda)
+    kw = dict(J=J, L=L, K=K, Qcap=Qcap, A_max=A_max,
+              work_steps=A_max + 4 if W is None else W, **extra)
+    mod = vqs_kernel if kernel == "vqs" else vqs_bf_kernel
+    fn = mod.vqs_cuda if kernel == "vqs" else mod.vqs_bf_cuda
+    before = mod.launches.count
+    got = fn(st.n, st.sizes, st.durs, **kw)
+    torch.cuda.synchronize()
+    assert mod.launches.count == before + 1
+    want = ref(st.n, st.sizes, st.durs, **kw)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if W == 2:
+        assert int(got.dropped.sum()) > 0 and int(got.truncated.sum()) > 0
+    if K < 1 << J and lam == 1.5:
+        assert int(got.truncated.sum()) > 0
+    return got
+
+
+@pytest.mark.parametrize("G,J,L,K,Qcap,A_max,T,lam,mu,W", VQS_CASES)
+def test_vqs_kernel_equals_plain(cuda, G, J, L, K, Qcap, A_max, T, lam, mu,
+                                 W):
+    _vqs_case("vqs", vqs_ref, cuda, G, J, L, K, Qcap, A_max, T, lam, mu, W,
+              drain=min(K, 1 << J, 16))
+
+
+def test_vqs_kernel_packs_more_than_a_warp(cuda):
+    """drain = 40 > 32 with small jobs: the prefix fit spans two warp-wide
+    chunks (the plain trajectory differs from drain = 32, so batches of
+    more than 32 jobs were placed)."""
+    case = (cuda, 2, 7, 4, 128, 1024, 48, 150, 20.0, 0.02, 1)
+    got = _vqs_case("vqs", vqs_ref, *case, sizes=(0.004, 0.02), drain=40)
+    narrow = _vqs_case("vqs", vqs_ref, *case, sizes=(0.004, 0.02), drain=32)
+    assert not torch.equal(got.queue_len, narrow.queue_len)
+
+
+def test_vqs_bf_kernel_counts_past_a_byte(cuda):
+    """K = 2^J = 256 at J = 8 with jobs of the smallest type: a server
+    holds 256 of them, past what a byte counts."""
+    from repro_torch.core.engine import run_vqs_bf_streams
+    case = (cuda, 2, 8, 2, 256, 2048, 64, 120, 40.0, 0.01, 68)
+    _vqs_case("vqs_bf", vqs_bf_ref, *case, sizes=(0.0005, 0.0039))
+    st = ensemble_streams(range(2), 40.0, 0.01, _sampler(0.0005, 0.0039),
+                          L=2, K=256, A_max=64, horizon=120, device=cuda)
+    _, state = run_vqs_bf_streams(st, J=8, L=2, K=256, Qcap=2048, A_max=64,
+                                  work_steps=68, return_state=True)
+    assert int((state.srv > 0).sum(-1).max()) == 256
+
+
+@pytest.mark.parametrize("G,J,L,K,Qcap,A_max,T,lam,mu,W", VQS_CASES)
+def test_vqs_bf_kernel_equals_plain(cuda, G, J, L, K, Qcap, A_max, T, lam,
+                                    mu, W):
+    _vqs_case("vqs_bf", vqs_bf_ref, cuda, G, J, L, K, Qcap, A_max, T, lam,
+              mu, W)
+
+
+@pytest.mark.parametrize("policy", ["vqs", "vqs-bf"])
+def test_vqs_kernels_take_trace_width_durations(cuda, policy):
+    """Trace-built streams carry only the A_max per-arrival duration lanes;
+    the kernels read the last A_max lanes of either width."""
+    rng = np.random.default_rng(7)
+    slots = np.sort(rng.integers(0, 300, 900))
+    st = streams_from_trace(slots, rng.uniform(0.02, 0.95, 900),
+                            rng.integers(1, 80, 900), device=cuda)
+    A = int(st.sizes.shape[1])
+    assert st.durs.shape == (300, A)
+    kw = dict(J=3, L=8, K=16, Qcap=512, A_max=A)
+    mod = vqs_kernel if policy == "vqs" else vqs_bf_kernel
+    before = mod.launches.count
+    from repro_torch.core.engine import run_policy_streams
+    got = run_policy_streams(st, policy=policy, engine="cuda", strict=True,
+                             **kw)
+    assert mod.launches.count == before + 1
+    want = run_policy_streams(st, policy=policy, engine="scan", **kw)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("policy", ["vqs", "vqs-bf"])
+def test_monte_carlo_vqs_cuda_engine_equals_scan_on_card(cuda, policy):
+    wl = Workload(lam=2.0, mu=0.02, sampler=_sampler(0.1, 0.9))
+    cfg = dict(J=4, L=12, K=16, Qcap=256, A_max=8, horizon=150, device=cuda)
+    mod = vqs_kernel if policy == "vqs" else vqs_bf_kernel
+    before = mod.launches.count
+    got = monte_carlo_policy(wl, seeds=[1, 2, 3], policy=policy,
+                             engine="cuda", strict=True, **cfg)
+    assert mod.launches.count == before + 1
+    ref = monte_carlo_policy(wl, seeds=[1, 2, 3], policy=policy,
+                             engine="scan", **cfg)
+    for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(ref, f)), f

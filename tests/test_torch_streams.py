@@ -197,3 +197,74 @@ def test_convert_round_trip():
                        torch.tensor(0))
     out = result_to_numpy(res)
     assert isinstance(out.queue_len, np.ndarray) and out.preempted is None
+
+
+@pytest.mark.parametrize("J", [2, 4, 7])
+def test_vq_type_of_grid_matches_jax_at_every_grid_point(J):
+    """The VQS classifier, comparison for comparison, on every grid size
+    1..RES (and the float front end on the same points)."""
+    from repro_torch.core.engine import vq_type_of, vq_type_of_grid
+    from repro_torch.core.quantize import RES
+    g = np.arange(1, RES + 1, dtype=np.int32)
+    want = np.asarray(jops.vq_type_of_grid(jnp.asarray(g), J))
+    np.testing.assert_array_equal(
+        vq_type_of_grid(torch.from_numpy(g), J).numpy(), want)
+    sizes = (g / RES).astype(np.float32)
+    np.testing.assert_array_equal(
+        vq_type_of(torch.from_numpy(sizes), J).numpy(),
+        np.asarray(jops.vq_type_of(jnp.asarray(sizes), J)))
+
+
+def test_k_red_and_max_weight_config_match_jax():
+    from repro.core.partition import k_red as j_k_red
+    from repro_torch.core.engine import k_red_t, max_weight_config
+    from repro_torch.core.partition import k_red
+    from repro_torch.core.quantize import RES, TWO_THIRDS, to_grid
+    from repro.core import quantize as jq
+    assert (RES, TWO_THIRDS) == (jq.RES, jq.TWO_THIRDS)
+    np.testing.assert_array_equal(to_grid([0.3, 1e-9, 1.0, 0.5]),
+                                  jq.to_grid([0.3, 1e-9, 1.0, 0.5]))
+    for J in range(2, 9):
+        np.testing.assert_array_equal(k_red(J), j_k_red(J))
+        assert k_red_t(J).dtype == torch.int32
+    assert k_red(4).shape == (12, 8) and k_red(7).shape == (24, 14)
+    with pytest.raises(ValueError):
+        k_red(1)
+    rng = np.random.default_rng(5)
+    for J in (2, 4, 7):
+        q = rng.integers(0, 6, (64, 2 * J)).astype(np.int32)
+        q[0] = 0  # all-zero weights: the first row wins
+        i, row = max_weight_config(k_red_t(J), torch.from_numpy(q))
+        for b in range(64):
+            ji, jrow = jops.max_weight_config_jax(J, jnp.asarray(q[b]))
+            assert int(i[b]) == int(ji)
+            np.testing.assert_array_equal(row[b].numpy(), np.asarray(jrow))
+
+
+def test_streams_from_trace_matches_jax():
+    """Raw arrays (unsorted slots, sizes off the grid, durations below 1):
+    the same stable sort, quantization and clamps as JAX; a smaller A_max
+    raises instead of dropping jobs."""
+    from repro_torch.core.engine import streams_from_trace
+    rng = np.random.default_rng(3)
+    slots = rng.integers(0, 40, 200)
+    sizes = rng.uniform(0.0, 1.0, 200)
+    durs = rng.integers(-2, 30, 200)
+    for kw in (dict(), dict(horizon=30), dict(A_max=20)):
+        got = streams_from_trace(slots, sizes, durs, device="cpu", **kw)
+        want = jstreams.streams_from_trace(slots, sizes, durs, **kw)
+        for f in ("n", "sizes", "durs"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(want, f)),
+                                          err_msg=f"{kw} {f}")
+        assert got.n.dtype == torch.int32 and got.durs.dtype == torch.int32
+    with pytest.raises(ValueError, match="raise A_max"):
+        streams_from_trace(slots, sizes, durs, A_max=2, device="cpu")
+    with pytest.raises(TypeError, match="not both"):
+        from types import SimpleNamespace
+        streams_from_trace(SimpleNamespace(arrival_slots=slots, sizes=sizes,
+                                           durations=durs), sizes,
+                           device="cpu")
+    with pytest.raises(ValueError, match="empty trace"):
+        streams_from_trace(np.zeros(0), np.zeros(0), np.zeros(0),
+                           device="cpu")
