@@ -14,6 +14,10 @@ port's paths through the entry points a user calls:
   * vqs and vqs-bf paths: the same cluster and law with that panel's
     J = 4, K = 16, Qcap = 1024, at offered load 0.6 (inside the proven
     2/3 region of both policies), 128 members, 1000 slots;
+  * bfjs-mr path: ``monte_carlo_policy(..., policy="bfjs-mr",
+    engine="cuda")`` — the same cluster with two resources (cpu, mem),
+    each demand U[0.1, 0.9] independently, at offered load 0.8 per
+    resource, Qcap = 1024, 128 members, 1000 slots;
   * best-fit path: ``best_fit_batched`` on 128 clusters of 1000 servers
     with bursts of 4096 jobs.
 
@@ -159,9 +163,32 @@ def vqs_work(streams, res, L, J, scan_queue: bool) -> tuple[float, float]:
     return nbytes, ops
 
 
-def check_path(tag: str, res, G, T, L, offered, counters, own) -> float:
+def mr_work(streams, res, L) -> tuple[float, float]:
+    """Bytes and operations the multi-resource BF-J/S slot engine needs on
+    these inputs.
+
+    Bytes: the counts, and each arrival's R demands and duration read
+    once; the (G, T) queue and departure trajectories, the (G, T, R)
+    occupancy and two counters written once.  Operations: per slot, one
+    departure test per server; per arrival, one R-resource feasibility and
+    score pass over the servers (BF-J); per slot, one R-resource fit test
+    of every queued job for each server that a departure freed (BF-S).
+    Departures and queue lengths are this run's."""
+    import torch
+    G, T, A, R = streams.sizes.shape
+    arrivals = int(streams.n.sum())
+    ndep = torch.diff(res.departed, dim=1,
+                      prepend=torch.zeros_like(res.departed[:, :1]))
+    nbytes = 4 * (G * T + arrivals * (R + 1) + (2 + R) * G * T + 2 * G)
+    ops = G * T * L + arrivals * L * R \
+        + float((ndep.double() * res.queue_len.double()).sum()) * R
+    return nbytes, ops
+
+
+def check_path(tag: str, res, G, T, L, offered, counters, own):
     """The invariants every Monte-Carlo path must keep; returns the
-    utilisation over slots 500..T-1."""
+    utilisation over slots 500..T-1 (a tuple, one per resource, where the
+    occupancy has a resource axis)."""
     import torch
     for name, counter in counters.items():
         if name == own and counter.count < 1:
@@ -177,11 +204,14 @@ def check_path(tag: str, res, G, T, L, offered, counters, own) -> float:
         raise AssertionError(f"{tag}: departures not monotone")
     if float(occ.min()) < 0 or float(occ.max()) > L:
         raise AssertionError(f"{tag}: occupancy outside [0, L]")
-    util = float(occ[:, 500:].double().mean()) / L
-    if abs(util - offered) > 0.03:
-        raise AssertionError(f"{tag}: utilisation {util:.4f} not within "
-                             f"0.03 of the offered load {offered:.4f}")
-    return util
+    per = occ[:, 500:].double().mean((0, 1)) / L
+    utils = tuple(float(u) for u in per.reshape(-1))
+    for util in utils:
+        if abs(util - offered) > 0.03:
+            raise AssertionError(f"{tag}: utilisation {util:.4f} not "
+                                 f"within 0.03 of the offered load "
+                                 f"{offered:.4f}")
+    return utils if occ.ndim == 3 else utils[0]
 
 
 def main() -> int:
@@ -202,6 +232,8 @@ def main() -> int:
     from repro_torch.kernels.best_fit.ref import best_fit_ref_batched
     from repro_torch.kernels.bfjs import bfjs as bfjs_kernel
     from repro_torch.kernels.bfjs.ref import bfjs_ref
+    from repro_torch.kernels.bfjs_mr import bfjs_mr as bfjs_mr_kernel
+    from repro_torch.kernels.bfjs_mr.ref import bfjs_mr_ref
     from repro_torch.kernels.common import (GracefulDegradationWarning,
                                             ensemble_plane_bytes)
     from repro_torch.kernels.vqs import vqs as vqs_kernel
@@ -211,6 +243,7 @@ def main() -> int:
     warnings.simplefilter("error", GracefulDegradationWarning)
     counters = {"best_fit": bf_kernel.launches,
                 "bfjs": bfjs_kernel.launches,
+                "bfjs_mr": bfjs_mr_kernel.launches,
                 "vqs": vqs_kernel.launches,
                 "vqs_bf": vqs_bf_kernel.launches}
 
@@ -229,11 +262,22 @@ def main() -> int:
     libs = build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
 
-    def uniform(lo, hi):
+    def uniform(lo, hi, R=1):
         def sampler(gen, n, device):
-            return torch.rand(n, generator=gen, device=device) * (hi - lo) \
-                + lo
+            shape = (n,) if R == 1 else (n, R)
+            return torch.rand(shape, generator=gen, device=device) \
+                * (hi - lo) + lo
         return sampler
+
+    def anti_correlated(gen, n, device):
+        """(cpu, mem) demands: one resource U(0.45, 0.55), the other
+        U(0.05, 0.1), each half the time (benchmarks/sched_micro.py
+        ``_mr_sampler``)."""
+        heavy = torch.rand(n, generator=gen, device=device) * 0.1 + 0.45
+        light = torch.rand(n, generator=gen, device=device) * 0.05 + 0.05
+        flip = torch.rand(n, generator=gen, device=device) < 0.5
+        return torch.stack([torch.where(flip, heavy, light),
+                            torch.where(flip, light, heavy)], dim=1)
 
     rows = {}
 
@@ -294,6 +338,26 @@ def main() -> int:
         print(f"{name} bench G={Gb} J={Jb} L={Lb} K={Kb} Qcap={Qb} "
               f"A_max={Ab} T={Tb}: equal to plain (exact); truncated "
               f"{int(got.truncated.sum())}, dropped {int(got.dropped.sum())}")
+    del st, got
+
+    # -- 3b. bfjs_mr kernel vs plain at the bench shape ---------------------
+    # (benchmarks/sched_micro.py's _bench_mr_engines config on 4 members:
+    # the anti-correlated law, where alignment packing differs most from
+    # the max-collapse)
+    Gb, Lb, Kb, Qb, Ab, Tb = 4, 16, 16, 512, 8, 3000
+    st = ensemble_streams(range(args.seed, args.seed + Gb), 1.2, 0.05,
+                          anti_correlated, L=Lb, K=Kb, A_max=Ab, horizon=Tb,
+                          device=dev, num_resources=2)
+    kw = dict(L=Lb, K=Kb, Qcap=Qb, A_max=Ab, work_steps=24,
+              capacity=(1.0, 1.0))
+    got = bfjs_mr_kernel.bfjs_mr_cuda(st.n, st.sizes, st.durs, **kw)
+    torch.cuda.synchronize()
+    require_equal("bfjs_mr bench", got, bfjs_mr_ref(st.n, st.sizes,
+                                                     st.durs, **kw))
+    print(f"bfjs_mr bench G={Gb} R=2 L={Lb} K={Kb} Qcap={Qb} A_max={Ab} "
+          f"T={Tb}: equal to plain (exact); mean queue "
+          f"{float(got.queue_len.double().mean()):.2f}, truncated "
+          f"{int(got.truncated.sum())}, dropped {int(got.dropped.sum())}")
     del st, got
 
     # -- 4. bfjs path at full width -------------------------------------------
@@ -417,7 +481,72 @@ def main() -> int:
             library_ms=None, plain_members=g)
         del st, got, ref, res, sub
 
-    # -- 6. best-fit path ----------------------------------------------------
+    # -- 6. bfjs-mr path at full width ----------------------------------------
+    Rm, Qr = 2, 1024
+    lam_r = 0.8 * Lm * mu / size_mean          # offered load 0.8: lam = 16
+    wl_r = Workload(lam=lam_r, mu=mu, sampler=uniform(0.1, 0.9, Rm),
+                    num_resources=Rm)
+    cfg_r = dict(L=Lm, K=Km, Qcap=Qr, A_max=Am, horizon=Tm)
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    wall, res = wall_ms(lambda: monte_carlo_policy(
+        wl_r, seeds=seeds, policy="bfjs-mr", engine="cuda", strict=True,
+        device=dev, **cfg_r))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mr_launches = bfjs_mr_kernel.launches.count
+    offered = lam_r * size_mean / (mu * Lm)
+    utils = check_path("bfjs-mr path", res, Gm, Tm, Lm, offered, counters,
+                       "bfjs_mr")
+    mean_q = float(res.queue_len.double().mean())
+    if int(res.dropped.sum()):
+        raise AssertionError(f"bfjs-mr path: {int(res.dropped.sum())} "
+                             "arrivals dropped")
+    if not mean_q > 0:
+        raise AssertionError("bfjs-mr path: the queue never filled, so no "
+                             "BF-S refill was timed")
+    print(f"bfjs-mr path G={Gm} R={Rm} L={Lm} K={Km} Qcap={Qr} A_max={Am} "
+          f"T={Tm} lam={lam_r}: wall {wall:.1f} ms (streams + kernel), "
+          f"{Gm * Tm / wall * 1e3:.0f} ensemble-slots/s; utilisation "
+          f"{', '.join(f'{u:.4f}' for u in utils)} (cpu, mem) vs offered "
+          f"{offered:.4f}; mean queue {mean_q:.2f}; dropped 0; truncated "
+          f"{int(res.truncated.sum())}; bfjs_mr launches {mr_launches}; "
+          f"device memory peak {peak_gb:.2f} GB")
+
+    streams_ms, st = wall_ms(lambda: ensemble_streams(
+        seeds, lam_r, mu, uniform(0.1, 0.9, Rm), L=Lm, K=Km, A_max=Am,
+        horizon=Tm, device=dev, num_resources=Rm))
+    kw = dict(L=Lm, K=Km, Qcap=Qr, A_max=Am, work_steps=Am + 4,
+              capacity=(1.0,) * Rm)
+    got = bfjs_mr_kernel.bfjs_mr_cuda(st.n, st.sizes, st.durs, **kw)
+    require_equal("bfjs-mr path vs monte_carlo_policy", got, res)
+    ms = time_ms(lambda: bfjs_mr_kernel.bfjs_mr_cuda(st.n, st.sizes,
+                                                     st.durs, **kw), reps=3)
+    g = PLAIN_MEMBERS
+    sub = (st.n[:g], st.sizes[:g], st.durs[:g])
+    plain_ms, ref = wall_ms(lambda: bfjs_mr_ref(*sub, **kw))
+    require_equal(f"bfjs-mr path, first {g} members", members(got, g), ref)
+    sub_ms = time_ms(lambda: bfjs_mr_kernel.bfjs_mr_cuda(*sub, **kw),
+                     reps=3)
+    b_ms, b_by = bound(*mr_work(st, got, Lm))
+    shape = (Lm, Km, Qr, Am, Rm)
+    lib = bfjs_mr_kernel.load()
+    print(f"bfjs-mr path shapes: equal to plain on members 0..{g - 1} "
+          f"(exact, truncated {int(ref.truncated.sum())} in both); streams "
+          f"{streams_ms:.1f} ms, kernel {ms:.1f} ms ({Gm} members) / "
+          f"{sub_ms:.1f} ms ({g} members), plain {plain_ms:.1f} ms ({g} "
+          f"members), bound {b_ms:.4f} ms ({b_by}); shared memory "
+          f"{lib.bfjs_mr_shared_bytes(*shape)} B a block, workspace "
+          f"{lib.bfjs_mr_workspace_bytes(*shape)} B a member")
+    rows["bfjs_mr"] = dict(
+        name="bfjs_mr", route="cuda",
+        source="src/repro_torch/kernels/csrc/bfjs_mr.cu",
+        replaces="src/repro/kernels/bfjs_mr/bfjs_mr.py:46",
+        launches=mr_launches, max_abs_err=max_abs_err(members(got, g), ref),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, plain_members=g)
+    del st, got, ref, res, sub
+
+    # -- 7. best-fit path ----------------------------------------------------
     reset_counters()
     assign, new_resid = best_fit_batched(resid, sizes)
     torch.cuda.synchronize()
@@ -445,7 +574,7 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [rows[k] for k in ("bfjs", "vqs", "vqs_bf",
-                                                    "best_fit")],
+                                                    "bfjs_mr", "best_fit")],
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .core.engine.bfjs import BFJSState
+from .core.engine.bfjs_mr import BFJSMRState
 from .core.engine.streams import PolicyResult, SchedStreams
 from .core.engine.vqs import VQSState
 from .core.engine.vqs_bf import VQSBFState
@@ -49,19 +50,20 @@ def bfjs_state_from_numpy(carry, device=None) -> BFJSState:
                        for x, d in zip(carry, _STATE_DTYPES)))
 
 
-#: The boolean fields of the VQS-family carries; every other field is int32.
-_VQS_BOOL_FIELDS = ("cfg_k1", "has_cfg", "in_empty", "want", "up_last")
+#: The boolean fields of the integer carries (VQS family, bfjs-mr); every
+#: other field is int32.
+_BOOL_FIELDS = ("cfg_k1", "has_cfg", "in_empty", "want", "up_last")
 
 
 def _state_from_numpy(cls, carry, device):
-    """``cls`` (a VQS-family state NamedTuple) from a JAX scan carry in the
-    same field order."""
+    """``cls`` (a state NamedTuple whose fields are int32 or bool) from a
+    JAX scan carry in the same field order."""
     device = resolve_device(device)
     carry = tuple(carry)
     if len(carry) != len(cls._fields):
         raise ValueError(f"expected a {len(cls._fields)}-field carry, "
                          f"got {len(carry)} fields")
-    return cls(*(_tensor(x, torch.bool if f in _VQS_BOOL_FIELDS
+    return cls(*(_tensor(x, torch.bool if f in _BOOL_FIELDS
                          else torch.int32, device)
                  for f, x in zip(cls._fields, carry)))
 
@@ -76,6 +78,12 @@ def vqs_bf_state_from_numpy(carry, device=None) -> VQSBFState:
     """:class:`VQSBFState` from the 23-tuple scan carry of the JAX
     package's ``run_vqs_bf_streams(..., return_state=True)``."""
     return _state_from_numpy(VQSBFState, carry, device)
+
+
+def bfjs_mr_state_from_numpy(carry, device=None) -> BFJSMRState:
+    """:class:`BFJSMRState` from the 18-tuple scan carry of the JAX
+    package's ``run_bfjs_mr_streams(..., return_state=True)``."""
+    return _state_from_numpy(BFJSMRState, carry, device)
 
 
 def result_to_numpy(res: PolicyResult) -> PolicyResult:

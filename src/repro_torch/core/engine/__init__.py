@@ -1,15 +1,19 @@
-"""Accelerator engines of the port: streams, workload, the BF-J/S, VQS and
-VQS-BF engines and the policy registry (torch counterpart of
-``repro.core.engine``)."""
+"""Accelerator engines of the port: streams, workload, the BF-J/S,
+multi-resource BF-J/S, VQS and VQS-BF engines and the policy registry
+(torch counterpart of ``repro.core.engine``)."""
 from .api import (PolicySpec, available_policies, get_policy,
                   monte_carlo_policy, register_policy, run_policy,
                   run_policy_streams)
 from .bfjs import (BFJSResult, BFJSState, DEFAULT_MAX_REQUEUE, ENGINES,
                    ensemble_streams, initial_state, monte_carlo_bfjs,
                    run_bfjs, run_bfjs_streams, run_bfjs_trace)
-from .ops import (best_fit_place, best_fit_server, first_empty_positions,
-                  k_red_t, largest_fitting_job, max_weight_config,
-                  row_sum_lr, vq_type_of, vq_type_of_grid)
+from .bfjs_mr import (BFJSMRState, monte_carlo_bfjs_mr_workload,
+                      run_bfjs_mr_streams, run_bfjs_mr_trace,
+                      run_bfjs_mr_workload)
+from .ops import (alignment_score_pair, best_fit_place, best_fit_server,
+                  first_empty_positions, k_red_t, largest_fitting_job,
+                  max_weight_config, row_sum_lr, vq_type_of,
+                  vq_type_of_grid)
 from .streams import (INF_SLOT, PolicyResult, SchedStreams,
                       fault_plane_from_events, make_fault_plane,
                       make_streams, resolve_work_steps, streams_from_trace,
@@ -26,6 +30,8 @@ __all__ = [
     "BFJSState", "DEFAULT_MAX_REQUEUE", "ENGINES", "ensemble_streams",
     "initial_state",
     "monte_carlo_bfjs", "run_bfjs", "run_bfjs_streams", "run_bfjs_trace",
+    "BFJSMRState", "monte_carlo_bfjs_mr_workload", "run_bfjs_mr_streams",
+    "run_bfjs_mr_trace", "run_bfjs_mr_workload", "alignment_score_pair",
     "best_fit_place", "best_fit_server", "first_empty_positions",
     "k_red_t", "largest_fitting_job", "max_weight_config", "row_sum_lr",
     "vq_type_of", "vq_type_of_grid", "INF_SLOT", "PolicyResult",

@@ -1,5 +1,6 @@
 """Workload-first policy entry points (torch port of
-``repro.core.engine.api``: policies "bfjs", "vqs" and "vqs-bf").
+``repro.core.engine.api``: policies "bfjs", "bfjs-mr", "vqs" and
+"vqs-bf").
 
     wl = Workload(lam=17.0, mu=0.01, sampler=sampler)
     run_policy(wl, seed, policy="bfjs", engine="cuda", L=1000, ...)
@@ -7,11 +8,14 @@
     run_policy_streams(streams, policy="bfjs", engine="scan", ...)
     monte_carlo_policy(wl, seeds=range(128), policy="bfjs", engine="cuda",
                        ...)
+    monte_carlo_policy(wl2, seeds=range(128), policy="bfjs-mr",
+                       engine="cuda", L=1000, ...)   # wl2: R = 2 resources
 
 ``engine`` is ``"scan"`` (batched plain torch ops) or ``"cuda"`` (the
-policy's hand-written kernel); "cuda" bit-matches "scan".  Randomness is
-seeded by integers — one per ensemble member — in place of the JAX
-package's PRNG keys.  Entry points run on the card unless
+policy's hand-written kernel); "cuda" bit-matches "scan".  A policy whose
+host oracle is ported also takes ``"reference"`` (so far "bfjs-mr").
+Randomness is seeded by integers — one per ensemble member — in place of
+the JAX package's PRNG keys.  Entry points run on the card unless
 ``device="cpu"`` is passed.
 
 The JAX package's mesh sharding, checkpointed chunks and invariant audit
@@ -23,9 +27,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from . import bfjs, vqs
-from .bfjs import (ENGINES, monte_carlo_bfjs_workload, run_bfjs_trace,
+from . import bfjs, bfjs_mr, vqs
+from .bfjs import (monte_carlo_bfjs_workload, run_bfjs_trace,
                    run_bfjs_workload)
+from .bfjs_mr import (monte_carlo_bfjs_mr_workload, run_bfjs_mr_trace,
+                      run_bfjs_mr_workload)
 from .streams import PolicyResult, SchedStreams
 from .vqs import monte_carlo_vqs_workload, run_vqs_trace, run_vqs_workload
 from .vqs_bf import (monte_carlo_vqs_bf_workload, run_vqs_bf_trace,
@@ -40,7 +46,9 @@ class PolicySpec:
     run: Callable[..., PolicyResult]          # (workload, seed, ...)
     run_streams: Callable[..., PolicyResult]  # (streams, ...)
     monte_carlo: Callable[..., PolicyResult]  # (workload, seeds, ...)
-    reference_todo: str  # why engine="reference" is not ported yet
+    engines: tuple[str, ...] = bfjs.ENGINES   # the engines it runs
+    reference_todo: str | None = None  # why engine="reference" is not
+    #                                    ported yet, where it is not
 
 
 _POLICIES: dict[str, PolicySpec] = {}
@@ -67,11 +75,13 @@ def get_policy(policy: str) -> PolicySpec:
 
 
 def _check_engine(engine: str, policy: str) -> None:
-    if engine == "reference":
-        raise NotImplementedError(get_policy(policy).reference_todo)
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}; expected one of "
-                         f"{', '.join(ENGINES)}")
+    spec = get_policy(policy)
+    if engine in spec.engines:
+        return
+    if engine == "reference" and spec.reference_todo:
+        raise NotImplementedError(spec.reference_todo)
+    raise ValueError(f"unknown engine {engine!r} for policy {policy!r}; "
+                     f"expected one of {', '.join(spec.engines)}")
 
 
 def _not_ported(mesh=None, devices=None, chunk=None, checkpoint_dir=None,
@@ -97,6 +107,13 @@ register_policy(PolicySpec(
     run_streams=run_bfjs_trace,
     monte_carlo=monte_carlo_bfjs_workload,
     reference_todo=bfjs._REFERENCE_TODO,
+))
+register_policy(PolicySpec(
+    name="bfjs-mr",
+    run=run_bfjs_mr_workload,
+    run_streams=run_bfjs_mr_trace,
+    monte_carlo=monte_carlo_bfjs_mr_workload,
+    engines=bfjs_mr.ENGINES,
 ))
 register_policy(PolicySpec(
     name="vqs",

@@ -359,15 +359,17 @@ def _scan(streams: SchedStreams, L: int, K: int, Qcap: int, A_max: int,
 
 def ensemble_streams(seeds, lam: float, mu: float, sampler: Callable,
                       L: int, K: int, A_max: int, horizon: int, device,
-                      fault_rate: float = 0.0,
+                      num_resources: int = 1, fault_rate: float = 0.0,
                       repair_rate: float = 1.0) -> SchedStreams:
     """One stream set per integer seed, stacked on a leading G axis.  Each
     member draws from its own ``torch.Generator`` on ``device`` seeded with
-    its seed, straight into preallocated ensemble planes."""
+    its seed, straight into preallocated ensemble planes (sizes ``(G, T,
+    A_max)``, or ``(G, T, A_max, R)`` for ``num_resources`` R > 1)."""
     seeds = [int(s) for s in seeds]
     G, D = len(seeds), L * K + A_max
     n = torch.empty((G, horizon), dtype=torch.int32, device=device)
-    sizes = torch.empty((G, horizon, A_max), dtype=torch.float32,
+    lanes = (A_max,) if num_resources == 1 else (A_max, num_resources)
+    sizes = torch.empty((G, horizon, *lanes), dtype=torch.float32,
                         device=device)
     durs = torch.empty((G, horizon, D), dtype=torch.int32, device=device)
     up = None if fault_rate == 0.0 else torch.empty(
@@ -376,6 +378,7 @@ def ensemble_streams(seeds, lam: float, mu: float, sampler: Callable,
         gen = torch.Generator(device=device).manual_seed(seed)
         st = make_streams(gen, lam, mu, sampler, L=L, K=K, A_max=A_max,
                           horizon=horizon, device=device,
+                          num_resources=num_resources,
                           fault_rate=fault_rate, repair_rate=repair_rate)
         n[g], sizes[g], durs[g] = st.n, st.sizes, st.durs
         if up is not None:

@@ -1,6 +1,6 @@
 """Primitive scheduling ops shared by the engines (torch port of
-``repro.core.engine.ops``: the BF-J/S ops and the VQS classifier and
-configuration table).
+``repro.core.engine.ops``: the BF-J/S ops, the VQS classifier and
+configuration table, and the exact Tetris alignment score).
 
 Every op takes any number of leading batch axes — the ensemble axis that
 the JAX package adds with ``vmap``.  Ties always break to the lowest index.
@@ -56,6 +56,31 @@ def best_fit_place(residuals: torch.Tensor, sizes: torch.Tensor
         resid.scatter_(-1, col, torch.where(ok, cur + (-size), cur)[..., None])
         assign.append(srv)
     return torch.stack(assign, dim=-1).to(torch.int32), resid
+
+
+def alignment_score_pair(avail: torch.Tensor, demand: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tetris alignment ``<demand, avail>`` per server (paper §VIII), exact.
+
+    ``avail`` is ``(..., L, R)`` grid-integer availability and ``demand``
+    ``(..., R)`` grid integers.  The score needs up to ~34 bits, too wide
+    for int32 and for a float32 mantissa, and a float score is not
+    portable (a compiler may contract the mul+add into an FMA in one
+    lowering and not another, which flips argmin tie-breaks).  So, as the
+    JAX ``alignment_score_pair_jnp``, the score is an int32 pair ``(hi,
+    lo)`` with ``score == hi * 256 + lo`` and ``0 <= lo < 256``: each
+    product is taken against the split demand ``(d >> 8, d & 255)`` and
+    stays below 2**24, so every operation is exact, and comparing ``(hi,
+    lo)`` lexicographically compares the exact scores.  Exact while ``R *
+    capacity`` stays under ~128 server capacities."""
+    a = avail.to(torch.int32)
+    d = demand.to(torch.int32)[..., None, :]
+    hi = a[..., 0] * (d[..., 0] >> 8)
+    lo = a[..., 0] * (d[..., 0] & 255)
+    for r in range(1, a.shape[-1]):
+        hi = hi + a[..., r] * (d[..., r] >> 8)
+        lo = lo + a[..., r] * (d[..., r] & 255)
+    return hi + (lo >> 8), lo & 255
 
 
 def first_empty_positions(empty: torch.Tensor, want: torch.Tensor

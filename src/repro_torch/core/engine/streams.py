@@ -4,8 +4,9 @@
 All engine randomness is drawn before the slot loop into ``SchedStreams``:
 per-slot arrival counts, job sizes and service durations.  The layout and
 dtypes are those of the JAX package — ``n (T,) int32``, ``sizes (T, A_max)
-float32``, ``durs (T, L*K + A_max) int32`` — so streams made by either
-package run through either package's engines (``repro_torch.convert``).
+float32`` (``(T, A_max, R)`` for R-resource demand vectors), ``durs (T,
+L*K + A_max) int32`` — so streams made by either package run through
+either package's engines (``repro_torch.convert``).
 
 The duration stream layout: the LAST ``A_max`` lanes of ``durs[t]`` belong
 to the slot's arrivals (consumed by BF-J placements); everything before
@@ -33,7 +34,8 @@ class SchedStreams(NamedTuple):
     """Per-slot randomness consumed by the scheduling engines.  Every field
     may carry a leading ensemble axis G."""
     n: torch.Tensor       # (T,) int32 arrival counts, already clipped to A_max
-    sizes: torch.Tensor   # (T, A_max) f32 sizes in (0,1]
+    sizes: torch.Tensor   # (T, A_max) f32 sizes in (0,1]; (T, A_max, R)
+    #                       demand vectors for R > 1 resources
     durs: torch.Tensor    # (T, L*K + A_max) int32 geometric service durations
     #: Optional ``(T, L)`` bool server fault plane (True = up); ``None``
     #: means a fault-free cluster.
@@ -50,7 +52,8 @@ class PolicyResult(NamedTuple):
     """Per-slot trajectory of one simulated cluster (fields and order as in
     the JAX package; batched runs carry a leading G axis)."""
     queue_len: torch.Tensor   # (T,) int32
-    occupancy: torch.Tensor   # (T,) f32 occupied capacity (servers)
+    occupancy: torch.Tensor   # (T,) f32 occupied capacity (servers);
+    #                           (T, R) per resource for bfjs-mr
     departed: torch.Tensor    # (T,) int32 cumulative departures
     dropped: torch.Tensor     # () int32 arrivals dropped by fixed-size buffers
     truncated: torch.Tensor   # () int32 slots where a fixed bound cut the
@@ -132,17 +135,21 @@ def with_fault_plane(streams: SchedStreams, up) -> SchedStreams:
 
 def make_streams(generator: torch.Generator, lam: float, mu: float,
                  sampler: Callable, L: int, K: int, A_max: int,
-                 horizon: int, device=None, fault_rate: float = 0.0,
+                 horizon: int, device=None, num_resources: int = 1,
+                 fault_rate: float = 0.0,
                  repair_rate: float = 1.0) -> SchedStreams:
     """Pre-generate all per-slot randomness for one cluster simulation.
 
     Counts are ``torch.poisson(lam)`` clipped to ``A_max``; sizes come from
     one bulk call ``sampler(generator, horizon * A_max, device)`` laid out
-    slot-major as ``(T, A_max)``; durations are ``_geometric`` over the full
-    ``L*K + A_max`` width.  ``fault_rate > 0`` attaches a fault plane drawn
-    from the same generator AFTER the job streams, so adding faults never
-    perturbs ``n``/``sizes``/``durs``.  ``generator`` must live on
-    ``device``."""
+    slot-major as ``(T, A_max)``, or as ``(T, A_max, R)`` when
+    ``num_resources`` R > 1 and the sampler returns ``(n, R)`` demand
+    vectors; durations are ``_geometric`` over the full ``L*K + A_max``
+    width.  One generator draws all of them in that order, so the counts do
+    not depend on R and the durations do.  ``fault_rate > 0``
+    attaches a fault plane drawn from the same generator AFTER the job
+    streams, so adding faults never perturbs ``n``/``sizes``/``durs``.
+    ``generator`` must live on ``device``."""
     device = resolve_device(device)
     if fault_rate < 0 or repair_rate < 0:
         raise ValueError(
@@ -151,13 +158,16 @@ def make_streams(generator: torch.Generator, lam: float, mu: float,
     rate = torch.full((horizon,), float(lam), device=device)
     n = torch.clamp_max(torch.poisson(rate, generator=generator),
                         A_max).to(torch.int32)
-    sizes = sampler(generator, horizon * A_max, device)
-    if tuple(sizes.shape) != (horizon * A_max,):
+    draws = horizon * A_max
+    sizes = sampler(generator, draws, device)
+    want = (draws,) if num_resources == 1 else (draws, num_resources)
+    if tuple(sizes.shape) != want:
         raise ValueError(
             f"sampler produced sizes of shape {tuple(sizes.shape)} for "
-            f"n={horizon * A_max}: expected ({horizon * A_max},) "
-            "(sampler(generator, n, device) must return (n,))")
-    sizes = sizes.to(torch.float32).reshape(horizon, A_max)
+            f"n={draws}, num_resources={num_resources}: expected {want} "
+            "(sampler(generator, n, device) must return (n,) for R == 1, "
+            "(n, R) otherwise)")
+    sizes = sizes.to(torch.float32).reshape(horizon, A_max, *want[1:])
     durs = _geometric(generator, mu, (horizon, L * K + A_max), device)
     up = None if fault_rate == 0.0 else make_fault_plane(
         generator, L=L, horizon=horizon, fault_rate=fault_rate,
@@ -167,24 +177,30 @@ def make_streams(generator: torch.Generator, lam: float, mu: float,
 
 def streams_from_trace(trace_or_slots, sizes=None, durations=None, *,
                        horizon: int | None = None, A_max: int | None = None,
+                       collapse: bool = True,
+                       num_resources: int | None = None,
                        device=None) -> SchedStreams:
     """Build ``SchedStreams`` that replay a workload trace exactly.
 
-    Takes the raw arrays ``(arrival_slots, sizes, durations)`` or any object
-    with ``arrival_slots`` and ``durations`` attributes plus either
-    ``sizes`` or ``cpu`` and ``mem`` (a two-resource trace, collapsed to
-    ``max(cpu, mem)`` as the paper does).  As the JAX
-    ``streams_from_trace``: jobs are stably sorted by arrival slot, sizes
-    are quantized with ``quantize.to_grid`` and stored as the exact grid
-    value ``g / RES`` (float32 holds it exactly, so the engines' in-loop
-    quantization recovers ``g``), and durations are clamped to >= 1 slot.
+    Takes the raw arrays ``(arrival_slots, sizes, durations)`` — ``sizes``
+    ``(N,)`` for scalar jobs or ``(N, R)`` for demand vectors — or any
+    object with ``arrival_slots`` and ``durations`` attributes plus either
+    ``sizes`` or ``cpu`` and ``mem``.  A two-resource trace is collapsed to
+    ``max(cpu, mem)`` as the paper does, or kept as ``(T, A_max, 2)`` (cpu,
+    mem) demand vectors with ``collapse=False`` (the ``policy="bfjs-mr"``
+    path).  As the JAX ``streams_from_trace``: jobs are stably sorted by
+    arrival slot, sizes are quantized per resource with
+    ``quantize.to_grid`` and stored as the exact grid value ``g / RES``
+    (float32 holds it exactly, so the engines' in-loop quantization
+    recovers ``g``), and durations are clamped to >= 1 slot.
 
     The duration plane holds only the per-arrival lanes, ``(T, A_max)``:
-    every job's duration travels with the job, the semantics of the VQS
-    policies.  The BF-J/S engines need a sequential-draw region a trace
-    cannot provide and reject these streams.  ``A_max`` defaults to the
-    trace's peak arrivals per slot; a smaller ``A_max`` raises instead of
-    dropping trace jobs."""
+    every job's duration travels with the job, the semantics of the VQS and
+    bfjs-mr policies.  The BF-J/S engines need a sequential-draw region a
+    trace cannot provide and reject these streams.  ``A_max`` defaults to
+    the trace's peak arrivals per slot; a smaller ``A_max`` raises instead
+    of dropping trace jobs.  ``num_resources`` pins the R the caller
+    expects: a trace with another resource count raises, naming both."""
     from ..quantize import RES, to_grid
 
     if sizes is None or hasattr(trace_or_slots, "arrival_slots"):
@@ -195,8 +211,12 @@ def streams_from_trace(trace_or_slots, sizes=None, durations=None, *,
                 "durations), not both")
         arrival_slots = trace.arrival_slots
         durations = trace.durations
-        sizes = trace.sizes if hasattr(trace, "sizes") \
-            else np.maximum(trace.cpu, trace.mem)
+        if hasattr(trace, "sizes"):
+            sizes = trace.sizes
+        elif collapse:
+            sizes = np.maximum(trace.cpu, trace.mem)
+        else:
+            sizes = np.stack([trace.cpu, trace.mem], axis=1)
     else:
         arrival_slots = trace_or_slots
     device = resolve_device(device)
@@ -205,9 +225,20 @@ def streams_from_trace(trace_or_slots, sizes=None, durations=None, *,
     order = np.argsort(arrival_slots, kind="stable")
     arrival_slots = arrival_slots[order].astype(np.int64)
     sizes = np.asarray(sizes)
-    if sizes.ndim != 1:
-        raise ValueError(f"sizes must be (N,), got {sizes.shape}: the VQS "
-                         "policies take scalar sizes")
+    if sizes.ndim not in (1, 2):
+        raise ValueError(f"sizes must be (N,) or (N, R), got {sizes.shape}")
+    R = 1 if sizes.ndim == 1 else int(sizes.shape[1])
+    if num_resources is not None and R != num_resources:
+        hint = ""
+        if num_resources == 1 and R > 1:
+            hint = " (or pass collapse=True)"
+        elif R == 1 and num_resources == 2:
+            hint = " (or pass collapse=False)"
+        raise ValueError(
+            f"trace carries R={R} resource plane(s) (sizes shape "
+            f"{tuple(sizes.shape)}) but the target workload expects "
+            f"num_resources={num_resources}; pass a matching trace"
+            f"{hint} instead of broadcasting")
     g = to_grid(sizes[order])
     durations = np.maximum(np.asarray(durations)[order].astype(np.int64), 1)
     if horizon is None:
@@ -226,7 +257,8 @@ def streams_from_trace(trace_or_slots, sizes=None, durations=None, *,
             f"trace has {peak} arrivals in one slot > A_max={A_max}; "
             "raise A_max (streams never drop trace jobs silently)")
 
-    size_arr = np.zeros((horizon, A_max), dtype=np.float32)
+    size_shape = (horizon, A_max) if R == 1 else (horizon, A_max, R)
+    size_arr = np.zeros(size_shape, dtype=np.float32)
     dur_arr = np.ones((horizon, A_max), dtype=np.int32)
     slot = arrival_slots[in_h]
     # lane[i] = index of job i within its slot (jobs are slot-sorted)

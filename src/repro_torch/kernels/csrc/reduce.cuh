@@ -67,6 +67,36 @@ __device__ __forceinline__ void block_arg(float& v, int& i, float* redf, int* re
   __syncthreads();
 }
 
+// (64-bit key, index) pair: with kMin the lowest key wins, else the
+// highest; ties go to the lowest index.
+template <bool kMin>
+__device__ __forceinline__ bool better_pair64(long long v, int i, long long bv, int bi) {
+  return (kMin ? v < bv : v > bv) || (v == bv && i < bi);
+}
+
+template <bool kMin>
+__device__ __forceinline__ void block_arg64(long long& v, int& i, long long* redv, int* redi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const long long ov = __shfl_xor_sync(kFullMask, v, off);
+    const int oi = __shfl_xor_sync(kFullMask, i, off);
+    if (better_pair64<kMin>(ov, oi, v, i)) { v = ov; i = oi; }
+  }
+  if (lane == 0) { redv[warp] = v; redi[warp] = i; }
+  __syncthreads();
+  v = redv[0];
+  i = redi[0];
+  for (int w = 1; w < nwarps; ++w) {
+    if (better_pair64<kMin>(redv[w], redi[w], v, i)) {
+      v = redv[w];
+      i = redi[w];
+    }
+  }
+  __syncthreads();
+}
+
 // Exclusive prefix sum of one int per thread, in thread order; `total`
 // receives the block-wide sum.
 __device__ __forceinline__ int block_exclusive_scan(int v, int* red, int& total) {

@@ -80,9 +80,9 @@ def test_run_policy_streams_matches_jax():
 
 def test_registry_and_unported_options():
     wl = Workload(lam=1.0, mu=0.1, sampler=_sampler)
-    assert available_policies() == ("bfjs", "vqs", "vqs-bf")
+    assert available_policies() == ("bfjs", "bfjs-mr", "vqs", "vqs-bf")
     with pytest.raises(ValueError, match="unknown policy"):
-        run_policy(wl, policy="bfjs-mr", device="cpu", **CFG)
+        run_policy(wl, policy="bfjs-mr2", device="cpu", **CFG)
     with pytest.raises(ValueError, match="unknown engine"):
         run_policy(wl, engine="pallas", device="cpu", **CFG)
     with pytest.raises(NotImplementedError, match="threefry"):
@@ -95,6 +95,13 @@ def test_registry_and_unported_options():
             run_policy(Workload(lam=1.0, mu=0.1, sampler=_sampler,
                                 num_resources=2), policy=policy,
                        device="cpu", **CFG)
+    # bfjs-mr has a "reference" engine; it takes no unknown engine either
+    ref = run_policy(wl, policy="bfjs-mr", engine="reference", device="cpu",
+                     **CFG)
+    assert ref.occupancy.shape == (80, 1)
+    with pytest.raises(ValueError, match="unknown engine"):
+        run_policy(wl, policy="bfjs-mr", engine="pallas", device="cpu",
+                   **CFG)
     for kw, item in ((dict(mesh=object()), "item 9"),
                      (dict(chunk=10), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
@@ -110,6 +117,13 @@ def test_registry_and_unported_options():
     with pytest.raises(ValueError, match="single-resource"):
         run_policy(Workload(lam=1.0, mu=0.1, sampler=_sampler,
                             num_resources=2), device="cpu", **CFG)
+
+
+def test_registry_covers_every_jax_policy():
+    """The port registers exactly the JAX package's policies, so none can
+    be left unported unnoticed."""
+    from repro.core.engine import available_policies as j_available
+    assert available_policies() == tuple(j_available())
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -136,7 +150,9 @@ def test_import_leaves_jax_and_repro_unloaded():
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "for m in ('core.engine.vqs', 'core.engine.vqs_bf', "
-        "'kernels.vqs.vqs', 'kernels.vqs_bf.vqs_bf', 'core.partition'):\n"
+        "'kernels.vqs.vqs', 'kernels.vqs_bf.vqs_bf', 'core.partition', "
+        "'core.engine.bfjs_mr', 'core.multi_resource', "
+        "'kernels.bfjs_mr.bfjs_mr'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

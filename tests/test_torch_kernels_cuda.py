@@ -15,6 +15,8 @@ from repro_torch.core.engine import (Workload,  # noqa: E402
                                      ensemble_streams, monte_carlo_policy,
                                      streams_from_trace)
 from repro_torch.kernels.best_fit import best_fit as bf_kernel  # noqa: E402
+from repro_torch.kernels.bfjs_mr import bfjs_mr as bfjs_mr_kernel  # noqa: E402
+from repro_torch.kernels.bfjs_mr.ref import bfjs_mr_ref  # noqa: E402
 from repro_torch.kernels.best_fit.ref import \
     best_fit_ref_batched  # noqa: E402
 from repro_torch.kernels.bfjs import bfjs as bfjs_kernel  # noqa: E402
@@ -205,3 +207,119 @@ def test_monte_carlo_vqs_cuda_engine_equals_scan_on_card(cuda, policy):
                              engine="scan", **cfg)
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+def _vec_sampler(lo, hi, R):
+    def sampler(gen, n, device):
+        u = torch.rand(n, R, generator=gen, device=device) * (hi - lo) + lo
+        return u[:, 0] if R == 1 else u
+    return sampler
+
+
+# (G, R, L, K, Qcap, A_max, T, lam, mu, sizes, W, capacity): R = 2 and 3, a
+# starved work list, an undersized K (K-full), queue overflow, R = 1 and
+# R = 4, more servers than threads, a queue too large for shared memory
+# (it moves to the global workspace), non-unit capacity, and the
+# full-width L = 1000 shape of the bfjs-mr path
+BFJS_MR_CASES = [
+    (2, 2, 4, 8, 256, 5, 300, 0.35, 0.05, (0.05, 0.5), 24, None),
+    (2, 3, 4, 8, 256, 5, 300, 0.8, 0.05, (0.05, 0.5), 24, None),
+    (2, 2, 3, 16, 256, 6, 300, 1.2, 0.1, (0.05, 0.25), 1, None),
+    (2, 2, 3, 2, 256, 6, 300, 1.2, 0.1, (0.05, 0.25), 32, None),
+    (2, 3, 3, 4, 8, 6, 200, 4.0, 0.02, (0.05, 0.5), 3, None),
+    (2, 1, 5, 6, 64, 6, 300, 2.5, 0.05, (0.05, 0.6), 24, None),
+    (2, 4, 6, 8, 128, 6, 300, 1.5, 0.05, (0.05, 0.4), 24, None),
+    (2, 2, 600, 4, 2048, 16, 60, 40.0, 0.05, (0.1, 0.9), 20, None),
+    (2, 2, 16, 16, 40000, 8, 200, 3.0, 0.02, (0.1, 0.9), 24, None),
+    (2, 2, 8, 8, 256, 6, 300, 1.5, 0.05, (0.05, 0.5), 24, (1.0, 0.75)),
+    (2, 2, 1000, 16, 1024, 48, 200, 16.0, 0.01, (0.1, 0.9), None, None),
+]
+
+
+@pytest.mark.parametrize("G,R,L,K,Qcap,A_max,T,lam,mu,sizes,W,capacity",
+                         BFJS_MR_CASES)
+def test_bfjs_mr_kernel_equals_plain(cuda, G, R, L, K, Qcap, A_max, T, lam,
+                                     mu, sizes, W, capacity):
+    st = ensemble_streams(range(G), lam, mu, _vec_sampler(*sizes, R), L=L,
+                          K=K, A_max=A_max, horizon=T, device=cuda,
+                          num_resources=R)
+    kw = dict(L=L, K=K, Qcap=Qcap, A_max=A_max,
+              work_steps=A_max + 4 if W is None else W,
+              capacity=capacity or (1.0,) * R)
+    sizes = st.sizes[..., None] if R == 1 else st.sizes  # (G, T, A, R)
+    before = bfjs_mr_kernel.launches.count
+    got = bfjs_mr_kernel.bfjs_mr_cuda(st.n, sizes, st.durs, **kw)
+    torch.cuda.synchronize()
+    assert bfjs_mr_kernel.launches.count == before + 1
+    want = bfjs_mr_ref(st.n, sizes, st.durs, **kw)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if W == 1 or K == 2:  # starved list, K-full
+        assert int(got.truncated.sum()) > 0
+    if Qcap == 8:
+        assert int(got.dropped.sum()) > 0
+
+
+def test_bfjs_mr_kernel_layout(cuda):
+    """The slice's shape keeps the queue in shared memory; a large Qcap
+    moves it to the workspace; both pass the gate."""
+    from repro_torch.kernels.bfjs_mr.ops import bfjs_mr_shared_bytes
+    from repro_torch.kernels.common import SMEM_LIMIT_BYTES
+    ws = bfjs_mr_kernel.load().bfjs_mr_workspace_bytes
+    planes = 4 * 1000 * 16 * 3  # the (L, K, R) and (L, K) planes
+    assert ws(1000, 16, 1024, 48, 2) == planes
+    assert ws(16, 16, 40000, 8, 2) == 4 * 16 * 16 * 3 + 4 * 4 * 40000
+    for Qcap in (1024, 40000):
+        assert bfjs_mr_shared_bytes(1000, 16, Qcap, 48, 2) \
+            <= SMEM_LIMIT_BYTES
+
+
+def test_bfjs_mr_kernel_takes_trace_width_durations(cuda):
+    """Trace-built (cpu, mem) streams carry only the A_max per-arrival
+    duration lanes; the kernel reads the last A_max lanes of either
+    width."""
+    from repro_torch.core.engine import run_policy_streams
+    rng = np.random.default_rng(7)
+    slots = np.sort(rng.integers(0, 300, 700))
+    st = streams_from_trace(slots, rng.uniform(0.02, 0.6, (700, 2)),
+                            rng.integers(1, 80, 700), device=cuda)
+    A = int(st.sizes.shape[1])
+    assert st.durs.shape == (300, A) and st.sizes.shape == (300, A, 2)
+    kw = dict(L=8, K=16, Qcap=512, A_max=A)
+    before = bfjs_mr_kernel.launches.count
+    got = run_policy_streams(st, policy="bfjs-mr", engine="cuda",
+                             strict=True, **kw)
+    assert bfjs_mr_kernel.launches.count == before + 1
+    want = run_policy_streams(st, policy="bfjs-mr", engine="scan", **kw)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_monte_carlo_bfjs_mr_cuda_engine_on_card(cuda):
+    """engine="cuda" equals "scan" on the card; a fault plane falls back
+    loudly to the scan engine, or raises under strict=True."""
+    import warnings
+    from repro_torch.kernels.common import GracefulDegradationWarning
+    wl = Workload(lam=2.0, mu=0.02, sampler=_vec_sampler(0.1, 0.6, 2),
+                  num_resources=2)
+    cfg = dict(L=12, K=16, Qcap=256, A_max=8, horizon=150, device=cuda)
+    before = bfjs_mr_kernel.launches.count
+    got = monte_carlo_policy(wl, seeds=[1, 2, 3], policy="bfjs-mr",
+                             engine="cuda", strict=True, **cfg)
+    assert bfjs_mr_kernel.launches.count == before + 1
+    ref = monte_carlo_policy(wl, seeds=[1, 2, 3], policy="bfjs-mr",
+                             engine="scan", **cfg)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    with pytest.raises(ValueError, match="fault-plane"):
+        monte_carlo_policy(wl, seeds=[1], policy="bfjs-mr", engine="cuda",
+                           strict=True, fault_rate=0.05, **cfg)
+    before = bfjs_mr_kernel.launches.count
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        res = monte_carlo_policy(wl, seeds=[1], policy="bfjs-mr",
+                                 engine="cuda", fault_rate=0.05, **cfg)
+    assert any(issubclass(x.category, GracefulDegradationWarning)
+               for x in w)
+    assert bfjs_mr_kernel.launches.count == before
+    assert int(res.preempted.sum()) > 0

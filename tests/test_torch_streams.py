@@ -268,3 +268,68 @@ def test_streams_from_trace_matches_jax():
     with pytest.raises(ValueError, match="empty trace"):
         streams_from_trace(np.zeros(0), np.zeros(0), np.zeros(0),
                            device="cpu")
+
+
+def test_make_streams_resource_vectors():
+    """R > 1: sizes (T, A_max, R) from an (n, R) sampler; the counts, drawn
+    first, do not depend on R and the durations keep their layout; a
+    sampler of the wrong width raises, naming both shapes."""
+    kw = dict(lam=1.5, mu=0.05, L=3, K=4, A_max=5, horizon=40, device="cpu")
+
+    def vec(R):
+        def sampler(gen, n, device):
+            return torch.rand(n, R, generator=gen, device=device)
+        return sampler
+    one = make_streams(torch.Generator().manual_seed(2),
+                       sampler=uniform_sampler(0.0, 1.0), **kw)
+    two = make_streams(torch.Generator().manual_seed(2), sampler=vec(2),
+                       num_resources=2, **kw)
+    assert two.sizes.shape == (40, 5, 2) and two.num_resources == 2
+    assert two.sizes.dtype == torch.float32
+    assert torch.equal(one.n, two.n) and two.durs.shape == one.durs.shape
+    with pytest.raises(ValueError, match=r"\(200, 2\).*expected \(200, 3\)"):
+        make_streams(torch.Generator(), sampler=vec(2), num_resources=3,
+                     **kw)
+    from repro_torch.core.engine import ensemble_streams
+    ens = ensemble_streams([2, 3], sampler=vec(2), num_resources=2, **kw)
+    assert ens.sizes.shape == (2, 40, 5, 2)
+    assert torch.equal(ens.sizes[0], two.sizes)
+
+
+def test_streams_from_trace_resource_modes_match_jax():
+    """A (cpu, mem) trace collapsed (max) or kept as (T, A_max, 2) demand
+    vectors, and raw (N, R) arrays: the JAX arrays; a resource count that
+    does not match num_resources raises with the JAX hint."""
+    from repro.core import synthesize_google_like_trace
+    from repro_torch.core.engine import streams_from_trace
+    trace = synthesize_google_like_trace(300, 300, seed=1)
+    for kw in (dict(), dict(collapse=False), dict(collapse=False,
+                                                  num_resources=2),
+               dict(num_resources=1)):
+        got = streams_from_trace(trace, device="cpu", **kw)
+        want = jstreams.streams_from_trace(trace, **kw)
+        for f in ("n", "sizes", "durs"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(want, f)),
+                                          err_msg=f"{kw} {f}")
+    unc = streams_from_trace(trace, collapse=False, device="cpu")
+    assert unc.num_resources == 2 and unc.sizes.ndim == 3
+    np.testing.assert_array_equal(
+        streams_from_trace(trace, device="cpu").sizes.numpy(),
+        unc.sizes.numpy().max(axis=-1))
+    rng = np.random.default_rng(4)
+    slots, dem = rng.integers(0, 30, 90), rng.uniform(0.0, 1.0, (90, 3))
+    durs = rng.integers(-1, 20, 90)
+    got = streams_from_trace(slots, dem, durs, device="cpu")
+    want = jstreams.streams_from_trace(slots, dem, durs)
+    for f in ("n", "sizes", "durs"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)))
+    assert got.sizes.shape[-1] == 3
+    with pytest.raises(ValueError, match=r"collapse=True"):
+        streams_from_trace(trace, collapse=False, num_resources=1,
+                           device="cpu")
+    with pytest.raises(ValueError, match=r"collapse=False"):
+        streams_from_trace(trace, num_resources=2, device="cpu")
+    with pytest.raises(ValueError, match="R=3"):
+        streams_from_trace(slots, dem, durs, num_resources=2, device="cpu")
