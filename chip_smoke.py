@@ -19,7 +19,20 @@ port's paths through the entry points a user calls:
     each demand U[0.1, 0.9] independently, at offered load 0.8 per
     resource, Qcap = 1024, 128 members, 1000 slots;
   * best-fit path: ``best_fit_batched`` on 128 clusters of 1000 servers
-    with bursts of 4096 jobs.
+    with bursts of 4096 jobs;
+  * serve path: llama3-8b at full width (32 layers, d_model 4096, vocab
+    128256, bf16, random weights from ``--seed``) behind
+    ``ServingEngine(num_replicas=2, b_slots=4, c_max=2048, policy="bf")``
+    answering 8 requests (prompts U[256, 1024] tokens, U[16, 64] new
+    tokens, submitted at once, so the BF-J/S admission queue fills), then
+    one ``prefill`` of 2048 tokens: the decode_attention kernel on every
+    decode step, the flash_attention kernel on prefill.  Teacher-forced
+    gates hold the model's decode with the kernels against decode with
+    their plain versions, and prefill against the last decode step, in
+    bf16 (before the path, on the weights and prompts of three seeds) and
+    in float32 at the same width and depth on the prompt's first 64 tokens
+    (after it).  A profile of one full-width decode step then splits its
+    device time by kernel and gives the card's busy share.
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; it must launch its own kernel and no other.  The
@@ -45,15 +58,31 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: Published H100 SXM peaks (NVIDIA data sheet) used for the bounds: HBM
-#: bytes per second, and float32 operations per second outside the tensor
-#: cores (the kernels' compares and selects).
+#: bytes per second, float32 operations per second outside the tensor
+#: cores (the scheduler kernels' compares and selects), and dense bf16
+#: tensor-core operations per second (the attention products' type).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
-#: Members of the full-width streams the VQS-family kernels are held
-#: against their plain versions on (members are independent, so the first
-#: eight of the ensemble are an exact sub-problem).
+#: Members of the full-width streams the VQS-family and bfjs_mr kernels
+#: are held against their plain versions on (members are independent, so
+#: the first eight of the ensemble are an exact sub-problem).
 PLAIN_MEMBERS = 8
+
+#: Seeds whose weights and 256-token prompt the bf16 teacher-forced gate
+#: runs on: ``--seed`` and the ones after it.
+BF16_GATE_SEEDS = 3
+
+#: Limits of the teacher-forced gates at llama3-8b's full width and depth,
+#: as max |diff| / max |logit|.  float32 decides whether the kernels are
+#: right: sound runs read at most 3.9e-6, and a 1% error in either
+#: kernel's softmax scale reads 0.0097 or more.  bf16 is a sanity check
+#: against gross faults: 32 layers of bf16 rounding put sound readings at
+#: 0.015-0.021 with or without the kernels (seeds 0-5), so it cannot see
+#: that 1% error (0.023-0.027), while a decode mask that drops the current
+#: token reads 0.36-0.48.
+GATE_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 
 
 def gpu_name_and_power_limit() -> str:
@@ -90,10 +119,11 @@ def wall_ms(fn) -> tuple[float, object]:
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work in ms, and which of bytes/operations sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -214,6 +244,376 @@ def check_path(tag: str, res, G, T, L, offered, counters, own):
     return utils if occ.ndim == 3 else utils[0]
 
 
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+
+
+def attn_check(what: str, got, ref) -> float:
+    """Hold an attention kernel's output to its plain version within the
+    tolerance of tests/test_kernels.py (|a - b| <= tol + tol |b|); returns
+    the max abs error."""
+    tol = ATTN_TOL[str(got.dtype).removeprefix("torch.")]
+    a, b = got.double(), ref.double()
+    err = float((a - b).abs().max())
+    if not bool(((a - b).abs() <= tol + tol * b.abs()).all()):
+        raise AssertionError(f"{what}: max abs err {err:.3g} against the "
+                             f"plain version, over the tolerance {tol}")
+    return err
+
+
+def decode_valid_rows(pos, C: int, window: int) -> list[int]:
+    """Valid cache rows per batch row for the decode mask."""
+    return [min(p + 1, C, window) if window else min(p + 1, C) for p in pos]
+
+
+def decode_phase(dev, seed: int) -> dict:
+    """decode_attention kernel against its plain version at the serve
+    path's shape (window 0 and 512) and the f32 sweep of
+    tests/test_kernels.py; timings at the serve shape, window 0."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=dev, dtype=dtype)
+
+    B, H, KV, C, hd = 4, 32, 8, 2048, 128
+    pos = (0, 511, 1337, 2047)
+    q = normal((B, H, hd), torch.bfloat16)
+    k = normal((B, KV, C, hd), torch.bfloat16)
+    v = normal((B, KV, C, hd), torch.bfloat16)
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    row = {}
+    for window in (0, 512):
+        got = da.decode_attention_cuda(q, k, v, p, window=window)
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(q, k, v, p, window=window)
+        err = attn_check(f"decode_attention window={window}", got, ref)
+        ms = time_ms(lambda: da.decode_attention_cuda(q, k, v, p,
+                                                      window=window), 50)
+        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, p,
+                                                        window=window), 5)
+        rows_valid = decode_valid_rows(pos, C, window)
+        nbytes = 2 * (sum(rows_valid) * KV * hd * 2 + 2 * B * H * hd)
+        ops = 4 * hd * H * sum(rows_valid)
+        b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
+        c_pos = torch.arange(C, device=dev)
+        mask = c_pos[None] <= p[:, None].long()
+        if window:
+            mask &= c_pos[None] > p[:, None].long() - window
+        qs, mask = q[:, :, None], mask[:, None, None]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, enable_gqa=True), 50)
+        print(f"decode_attention B={B} H={H} KV={KV} C={C} hd={hd} bf16 "
+              f"pos={pos} window={window}: max abs err {err:.3g} vs plain "
+              f"(tol 2e-2); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library (SDPA, boolean mask) {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes} B)")
+        if window == 0:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+    for C32, pos32, w32 in ((256, 0, 0), (256, 255, 0), (512, 300, 128)):
+        q32 = normal((2, 8, 64), torch.float32)
+        k32 = normal((2, 2, C32, 64), torch.float32)
+        v32 = normal((2, 2, C32, 64), torch.float32)
+        got = da.decode_attention_cuda(q32, k32, v32, pos32, window=w32)
+        torch.cuda.synchronize()
+        err = attn_check(f"decode_attention f32 C={C32}", got,
+                         decode_attention_ref(q32, k32, v32, pos32,
+                                              window=w32))
+        print(f"decode_attention B=2 H=8 KV=2 C={C32} hd=64 f32 pos={pos32} "
+              f"window={w32}: max abs err {err:.3g} vs plain (tol 2e-5)")
+    return row
+
+
+def flash_phase(dev, seed: int) -> dict:
+    """flash_attention kernel against its plain version at llama3-8b's
+    prefill shape (causal, window 0 and 512) and the f32 sweep of
+    tests/test_kernels.py; timings at window 0."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(seed + 1)
+
+    def normal(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=dev, dtype=dtype)
+
+    B, H, KV, S, hd = 1, 32, 8, 2048, 128
+    q = normal((B, H, S, hd), torch.bfloat16)
+    k = normal((B, KV, S, hd), torch.bfloat16)
+    v = normal((B, KV, S, hd), torch.bfloat16)
+    row = {}
+    for window in (0, 512):
+        got = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, causal=True, window=window)
+        err = attn_check(f"flash_attention window={window}", got, ref)
+        del ref
+        ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True,
+                                                     window=window), 10)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                 window=window), 3)
+        pairs = sum(min(i + 1, window) if window else i + 1
+                    for i in range(S))
+        nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+        ops = 4 * hd * pairs * B * H
+        b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
+        line = (f"flash_attention B={B} H={H} KV={KV} S={S} hd={hd} bf16 "
+                f"causal window={window}: max abs err {err:.3g} vs plain "
+                f"(tol 2e-2); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}, {ops:.4g} operations at "
+                f"{BF16_TC_OPS_PER_S:.4g}/s)")
+        if window == 0:
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 10)
+            line += f", library (SDPA is_causal) {lib_ms:.4f} ms"
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        print(line)
+    for S32, hd32, w32 in ((128, 64, 0), (256, 64, 0), (256, 128, 64)):
+        q32 = normal((2, 4, S32, hd32), torch.float32)
+        k32 = normal((2, 2, S32, hd32), torch.float32)
+        v32 = normal((2, 2, S32, hd32), torch.float32)
+        got = fa.flash_attention_cuda(q32, k32, v32, causal=True, window=w32)
+        torch.cuda.synchronize()
+        err = attn_check(f"flash_attention f32 S={S32}", got,
+                         attention_ref(q32, k32, v32, causal=True,
+                                       window=w32))
+        print(f"flash_attention B=2 H=4 KV=2 S={S32} hd={hd32} f32 causal "
+              f"window={w32}: max abs err {err:.3g} vs plain (tol 2e-5)")
+    return row
+
+
+def teacher_forced(cfg, params, prompt) -> dict[str, float]:
+    """Feed ``prompt`` (1, P) through ``decode_step`` and through
+    ``prefill``, once with the kernels and once with their plain versions
+    (same weights).  Returns, each as max |diff| / max |logit|: decode with
+    the kernels against decode with the plain versions over all P steps
+    (``kernels``), prefill against the last decode step with the kernels
+    (``prefill``), and the same with the plain versions (``floor``: the
+    model's own rounding, no kernel in it)."""
+    import torch
+    from repro_torch.models import model as M
+    P = prompt.shape[1]
+    logits, last = {}, {}
+    for use in (True, False):
+        caches = M.init_cache(cfg, 1, P, device=prompt.device)
+        steps = []
+        for i in range(P):
+            out, caches = M.decode_step(params, cfg, prompt[:, i:i + 1], i,
+                                        caches, use_kernels=use)
+            steps.append(out[:, 0])
+        logits[use] = torch.cat(steps)                    # (P, V)
+        last[use] = M.prefill(params, cfg, tokens=prompt, use_kernels=use)[0]
+        del caches
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+    return dict(kernels=rel(logits[True], logits[False]),
+                prefill=rel(last[True], logits[True][-1]),
+                floor=rel(last[False], logits[False][-1]))
+
+
+def gate_on_seed(cfg, dev, seed: int, P: int) -> None:
+    """The teacher-forced gate at full width on ``seed``'s weights and the
+    first P tokens of its 256-token prompt: ``kernels`` and ``prefill``
+    (``teacher_forced``) must be within ``GATE_TOL`` of the dtype."""
+    import torch
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 256))
+                              .astype(np.int64)).to(dev)[:, :P]
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    r = teacher_forced(cfg, params, prompt)
+    del params
+    torch.cuda.empty_cache()
+    tol = GATE_TOL[cfg.dtype]
+    tag = f"{'bf16' if cfg.dtype == 'bfloat16' else 'f32'} seed {seed}"
+    print(f"serve: teacher-forced {P}-token prompt, {tag} {cfg.num_layers} "
+          f"layers: decode with kernels vs plain versions max |diff| / max "
+          f"|logit| = {r['kernels']:.4g} over all {P} steps; prefill (flash) "
+          f"vs last decode step {r['prefill']:.4g} (gate {tol:g} each); "
+          f"the same with the plain versions {r['floor']:.4g}")
+    if not r["kernels"] <= tol or not r["prefill"] <= tol:
+        raise AssertionError(f"serve: {tag} teacher-forced gate failed")
+
+
+def profile_decode_step(cfg, params, dev) -> None:
+    """Where a full-width decode step's time goes: the host time to issue
+    one step of the serve path's 4 rows, at spread positions of a
+    2048-entry cache, against the step's synchronised time, then the
+    device time of 5 steps by kernel under ``torch.profiler`` and the
+    card's busy share of that window."""
+    import torch
+    from repro_torch.models import model as M
+    B, C, steps = 4, 2048, 5
+    caches = M.init_cache(cfg, B, C, device=dev)
+    tok = torch.ones((B, 1), dtype=torch.int64, device=dev)
+    pos = torch.linspace(0, C // 2, B, device=dev).to(torch.int32)
+
+    def step():
+        M.decode_step(params, cfg, tok, pos, caches)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    done = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    times: dict[str, float] = {}
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            times[e.key] = times.get(e.key, 0.0) + e.self_device_time_total
+            launches += e.count
+    busy = sum(times.values())
+    print(f"serve profile: decode step B={B} C={C} positions {pos.tolist()}: "
+          f"issue {issued * 1e3:.2f} ms, step {done * 1e3:.2f} ms (host "
+          f"clock)")
+    if busy == 0:
+        print("serve profile: the profiler recorded no device time: device "
+              "time not measured")
+        return
+    print(f"serve profile: {steps} steps under the profiler: wall "
+          f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+          f"({busy / wall_us:.1%}); per step {busy / steps / 1e3:.2f} ms of "
+          f"device time in {launches // steps} kernel launches")
+    gemm = sum(us for name, us in times.items()
+               if "nvjet" in name or "gemm" in name.lower())
+    print(f"serve profile: matrix products (cuBLAS kernels) "
+          f"{gemm / steps / 1e3:.3f} ms/step ({gemm / busy:.1%})")
+    for name, us in sorted(times.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"serve profile:  {us / steps / 1e3:8.3f} ms/step "
+              f"{us / busy:6.1%}  {name[:90]}")
+
+
+def serve_path(dev, seed: int, counters, reset_counters) -> dict:
+    """The LM serving path at llama3-8b's full width; returns the two
+    attention kernels' launches in the path's run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_config("llama3-8b")
+
+    # -- teacher-forced gates (GATE_TOL): kernels vs plain versions, prefill
+    # vs decode; the float32 one follows the path
+    for s in range(seed, seed + BF16_GATE_SEEDS):
+        gate_on_seed(cfg, dev, s, 256)
+    torch.cuda.reset_peak_memory_stats()
+    init_ms, params = wall_ms(lambda: M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev))
+    n_params = sum(x.numel() for x in [params["embed"]["w"],
+                                       params["head"]["w"]]) + sum(
+        x.numel() for layer in params["layers"]
+        for part in layer.values() for x in part.values())
+    print(f"serve: llama3-8b {cfg.num_layers} layers d_model {cfg.d_model} "
+          f"vocab {cfg.vocab_size} {cfg.dtype}: {n_params / 1e9:.3f} B "
+          f"parameters drawn on the card in {init_ms / 1e3:.1f} s")
+
+    # -- the path: engine + one prefill at S = 2048 --------------------------
+    rng = np.random.default_rng(seed)
+    rng.integers(1, cfg.vocab_size, (1, 256))     # the gates' prompt first
+    engine = ServingEngine(cfg, params, num_replicas=2, b_slots=4,
+                           c_max=2048, policy="bf", audit=True, device=dev)
+    decode_s = []
+    for rep in engine.replicas:
+        def timed(toks, positions, _decode=rep.decode):
+            t0 = time.perf_counter()
+            out = _decode(toks, positions)          # ends in a host copy
+            decode_s.append(time.perf_counter() - t0)
+            return out
+        rep.decode = timed
+    lengths = rng.integers(256, 1025, 8)       # drawn before the tokens,
+    max_new = rng.integers(16, 65, 8)          # so they do not depend on
+    reqs = [Request(rid=i, prompt=rng.integers(  # the vocabulary size
+                1, cfg.vocab_size, int(n)).astype(np.int32), max_new=int(m))
+            for i, (n, m) in enumerate(zip(lengths, max_new))]
+    frac = sum(r.tokens_needed for r in reqs) / 2048
+    long_prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (1, 2048)).astype(np.int64)).to(dev)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.submit(reqs)
+    done = engine.run(max_steps=20_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prefill_wall_ms, out = wall_ms(lambda: M.prefill(params, cfg,
+                                                     tokens=long_prompt))
+    launches = {n: c.count for n, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    ticks = len(engine.stats["queue_len"])
+    calls = len(decode_s)
+    if len(done) != 8 or any(len(r.out) != r.max_new for r in done):
+        raise AssertionError("serve: not every request completed with its "
+                             "max_new tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
+        raise AssertionError("serve: a generated token is out of the vocab")
+    if not max(engine.stats["queue_len"]) > 0:
+        raise AssertionError("serve: the admission queue never filled")
+    if launches["decode_attention"] != cfg.num_layers * calls \
+            or launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"serve: launches {launches}, expected "
+                             f"{cfg.num_layers} per decode call ({calls}) "
+                             f"and {cfg.num_layers} for the prefill")
+    if any(c for n, c in launches.items()
+           if n not in ("decode_attention", "flash_attention")):
+        raise AssertionError(f"serve: unexpected launches {launches}")
+    if out.shape != (1, cfg.vocab_size) or not bool(torch.isfinite(out)
+                                                   .all()):
+        raise AssertionError("serve: prefill logits bad shape or values")
+    generated = sum(len(r.out) for r in done)
+    processed = sum(r.pos for r in done)
+    prefill_ms = time_ms(lambda: M.prefill(params, cfg, tokens=long_prompt),
+                         3)
+    print(f"serve path: 8 requests, KV demand {frac:.3f} replicas of 2, "
+          f"max queue {max(engine.stats['queue_len'])}, admitted "
+          f"{engine.stats['admitted']}, slot rejections "
+          f"{engine.stats['rejected_slots']}; {ticks} ticks, {calls} "
+          f"replica decode steps in {wall:.2f} s; generated {generated} "
+          f"tokens ({generated / wall:.1f} tokens/s), processed {processed} "
+          f"tokens ({processed / wall:.1f} tokens/s); decode step "
+          f"{np.mean(decode_s) * 1e3:.2f} ms mean per replica tick (host "
+          f"clock, synchronised); prefill S=2048 {prefill_wall_ms:.1f} ms "
+          f"in the path, {prefill_ms:.1f} ms (CUDA events, mean of 3); "
+          f"device memory peak {peak_gb:.2f} GB; launches "
+          f"decode_attention {launches['decode_attention']} "
+          f"({launches['decode_attention'] // calls} per replica tick), "
+          f"flash_attention {launches['flash_attention']}")
+    del engine
+    profile_decode_step(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+
+    # the same gates in float32 at full width and depth, on the prompt's
+    # first 64 tokens: here the kernels and the model must agree to float32
+    # precision, not to bf16's
+    gate_on_seed(cfg.with_(dtype="float32"), dev, seed, 64)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -240,12 +640,16 @@ def main() -> int:
     from repro_torch.kernels.vqs.ref import vqs_ref
     from repro_torch.kernels.vqs_bf import vqs_bf as vqs_bf_kernel
     from repro_torch.kernels.vqs_bf.ref import vqs_bf_ref
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     warnings.simplefilter("error", GracefulDegradationWarning)
     counters = {"best_fit": bf_kernel.launches,
                 "bfjs": bfjs_kernel.launches,
                 "bfjs_mr": bfjs_mr_kernel.launches,
                 "vqs": vqs_kernel.launches,
-                "vqs_bf": vqs_bf_kernel.launches}
+                "vqs_bf": vqs_bf_kernel.launches,
+                "decode_attention": da.launches,
+                "flash_attention": fa.launches}
 
     def reset_counters():
         for c in counters.values():
@@ -571,11 +975,28 @@ def main() -> int:
         ms=bf_ms, plain_ms=bf_plain_ms, bound_ms=bf_bound, bound_by=bf_by,
         library_ms=None)
 
+    # -- 8. attention kernels vs plain at the serve path's shapes -----------
+    rows["decode_attention"] = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/decode_attention.py:22",
+        **decode_phase(dev, args.seed))
+    rows["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:21",
+        **flash_phase(dev, args.seed))
+
+    # -- 9. serve path: llama3-8b at full width --------------------------------
+    launches = serve_path(dev, args.seed, counters, reset_counters)
+    for name in ("decode_attention", "flash_attention"):
+        rows[name]["launches"] = launches[name]
+
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [rows[k] for k in ("bfjs", "vqs", "vqs_bf",
-                                                    "bfjs_mr", "best_fit")],
-                      "card": card}))
+    order = ("bfjs", "vqs", "vqs_bf", "bfjs_mr", "best_fit",
+             "decode_attention", "flash_attention")
+    print(json.dumps({"kernels": [rows[k] for k in order], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

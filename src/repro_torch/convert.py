@@ -1,9 +1,9 @@
-"""Carry streams, scan state and results between the JAX package and the
-port as numpy arrays.
+"""Carry streams, scan state, results, model parameters and KV caches
+between the JAX package and the port as numpy arrays.
 
 The two packages draw different random numbers from the same seed, so a
-parity check generates streams once (with either package), hands them over
-as numpy, and runs both engines on the same bits."""
+parity check generates its inputs once (with either package), hands them
+over as numpy, and runs both on the same bits."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,6 +15,9 @@ from .core.engine.streams import PolicyResult, SchedStreams
 from .core.engine.vqs import VQSState
 from .core.engine.vqs_bf import VQSBFState
 from .device import resolve_device
+from .models.attention import KVCache
+from .models.config import ModelConfig
+from .models.layers import cdtype
 
 _STATE_DTYPES = (torch.float32, torch.int32, torch.float32, torch.int32,
                  torch.int32, torch.int32, torch.int32, torch.int32,
@@ -91,3 +94,70 @@ def result_to_numpy(res: PolicyResult) -> PolicyResult:
     return PolicyResult(*(x.detach().cpu().numpy()
                           if isinstance(x, torch.Tensor) else x
                           for x in res))
+
+
+def model_params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
+    """The port's parameter dictionary from the JAX ``init_params`` pytree as
+    numpy (e.g. ``jax.tree.map(np.asarray, params)``).  The JAX layer leaves
+    are stacked over periods under ``layers/p{p}``; layer ``l`` is period
+    ``l // period`` at position ``p = l % period``.  Norm scales stay
+    float32; every other leaf is cast to ``cfg.dtype``, the cast the JAX
+    package applies at use."""
+    device = resolve_device(device)
+    dt = cdtype(cfg)
+
+    def leaf(name, x):
+        x = torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
+        return x.to(device=device, dtype=torch.float32 if name == "scale"
+                    else dt)
+
+    def convert(node, pick=None):
+        return {name: convert(x, pick) if isinstance(x, dict)
+                else leaf(name, x if pick is None else np.asarray(x)[pick])
+                for name, x in node.items()}
+
+    period = cfg.period
+    out = {name: convert(node) for name, node in tree.items()
+           if name != "layers"}
+    out["layers"] = [convert(tree["layers"][f"p{l % period}"], l // period)
+                     for l in range(cfg.num_layers)]
+    return out
+
+
+def kv_caches_from_numpy(tree, cfg: ModelConfig, device=None
+                         ) -> list[KVCache]:
+    """The port's per-layer caches from the JAX ``init_cache`` /
+    ``decode_step`` caches as numpy (or from :func:`kv_caches_to_numpy`):
+    ``{"p{p}": (k, v, length)}`` with k, v (periods, B, C, KV, hd) and
+    length (periods,).  k and v move to the kernels' (B, KV, C, hd) layout
+    in ``cfg.dtype``."""
+    device = resolve_device(device)
+    dt = cdtype(cfg)
+    period = cfg.period
+    out = []
+    for l in range(cfg.num_layers):
+        k, v, length = tree[f"p{l % period}"]
+        i = l // period
+
+        def move(x):
+            x = np.asarray(x, dtype=np.float32)[i].transpose(0, 2, 1, 3)
+            return torch.from_numpy(x.copy()).to(device=device, dtype=dt)
+        out.append(KVCache(move(k), move(v), torch.tensor(
+            int(np.asarray(length)[i]), dtype=torch.int32, device=device)))
+    return out
+
+
+def kv_caches_to_numpy(caches, cfg: ModelConfig) -> dict:
+    """The JAX cache layout as float32 numpy, from the port's caches:
+    ``{"p{p}": KVCache(k, v (periods, B, C, KV, hd), length (periods,))}``
+    (bfloat16 values are exact in float32)."""
+    period = cfg.period
+    out = {}
+    for p in range(period):
+        layers = caches[p::period]
+        k, v = (np.stack([getattr(c, name).detach().float().cpu().numpy()
+                          .transpose(0, 2, 1, 3) for c in layers])
+                for name in ("k", "v"))
+        out[f"p{p}"] = KVCache(k, v, np.array([int(c.length) for c in layers],
+                                              dtype=np.int32))
+    return out

@@ -19,3 +19,7 @@ def to_grid(sizes) -> np.ndarray:
     arr = np.asarray(sizes, dtype=np.float64)
     q = np.rint(arr * RES).astype(np.int64)
     return np.maximum(q, 1)
+
+
+def from_grid(sizes_int) -> np.ndarray:
+    return np.asarray(sizes_int, dtype=np.float64) / RES

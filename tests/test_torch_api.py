@@ -152,7 +152,10 @@ def test_import_leaves_jax_and_repro_unloaded():
         "for m in ('core.engine.vqs', 'core.engine.vqs_bf', "
         "'kernels.vqs.vqs', 'kernels.vqs_bf.vqs_bf', 'core.partition', "
         "'core.engine.bfjs_mr', 'core.multi_resource', "
-        "'kernels.bfjs_mr.bfjs_mr'):\n"
+        "'kernels.bfjs_mr.bfjs_mr', 'models.model', 'models.attention', "
+        "'configs.registry', 'configs.llama3_8b', 'cluster.admission', "
+        "'serving.engine', 'kernels.decode_attention.decode_attention', "
+        "'kernels.flash_attention.flash_attention'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

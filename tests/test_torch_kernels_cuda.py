@@ -323,3 +323,142 @@ def test_monte_carlo_bfjs_mr_cuda_engine_on_card(cuda):
                for x in w)
     assert bfjs_mr_kernel.launches.count == before
     assert int(res.preempted.sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# LM attention kernels (decode_attention, flash_attention)
+# ---------------------------------------------------------------------------
+def _normal(rng, shape, dtype, device):
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return x.to(device=device, dtype=dtype)
+
+
+def _close(got, ref, dtype):
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+DECODE_CASES = [
+    # (B, H, KV, C, hd, pos, window, dtype): the sweep of
+    # tests/test_kernels.py, then per-row positions at llama3-8b's shape,
+    # ragged C, G = 1 and 12, hd = 120, and rows with nothing valid
+    (2, 8, 2, 256, 64, 0, 0, torch.float32),
+    (2, 8, 2, 256, 64, 255, 0, torch.float32),
+    (2, 8, 2, 512, 64, 300, 0, torch.bfloat16),
+    (2, 8, 2, 512, 64, 300, 128, torch.float32),
+    (4, 32, 8, 2048, 128, (0, 511, 1337, 2047), 0, torch.bfloat16),
+    (4, 32, 8, 2048, 128, (0, 511, 1337, 2047), 512, torch.bfloat16),
+    (4, 32, 8, 2048, 128, (0, 511, 1337, 2047), 0, torch.float32),
+    (3, 4, 4, 100, 16, (99, 5, 63), 0, torch.float32),
+    (2, 24, 2, 300, 120, (150, 299), 40, torch.bfloat16),
+    (2, 4, 2, 64, 32, (-1, 200), 16, torch.float32),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,C,hd,pos,window,dtype", DECODE_CASES)
+def test_decode_attention_kernel_equals_plain(cuda, B, H, KV, C, hd, pos,
+                                              window, dtype):
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rng = np.random.default_rng(C + hd)
+    q = _normal(rng, (B, H, hd), dtype, cuda)
+    k = _normal(rng, (B, KV, C, hd), dtype, cuda)
+    v = _normal(rng, (B, KV, C, hd), dtype, cuda)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = da.launches.count
+    got = da.decode_attention_cuda(q, k, v, p, window=window)
+    torch.cuda.synchronize()
+    assert da.launches.count == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, hd)
+    _close(got, decode_attention_ref(q, k, v, p, window=window), dtype)
+
+
+def test_decode_attention_kernel_alignment(cuda):
+    """A cache view off the 16-byte grid is copied, not misread; a head dim
+    whose rows are not whole 16-byte vectors is refused."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rng = np.random.default_rng(9)
+    B, H, KV, C, hd = 2, 8, 2, 96, 64
+    q = _normal(rng, (B, H, hd), torch.bfloat16, cuda)
+    flat = _normal(rng, (2 * B * KV * C * hd + 1,), torch.bfloat16, cuda)
+    k = flat[1:1 + B * KV * C * hd].view(B, KV, C, hd)
+    v = flat[1 + B * KV * C * hd:].view(B, KV, C, hd)
+    assert k.data_ptr() % 16 != 0
+    p = torch.tensor([40, 95], dtype=torch.int32, device=cuda)
+    _close(da.decode_attention_cuda(q, k, v, p),
+           decode_attention_ref(q, k, v, p), torch.bfloat16)
+    q36 = _normal(rng, (B, H, 36), torch.bfloat16, cuda)
+    k36 = _normal(rng, (B, KV, C, 36), torch.bfloat16, cuda)
+    with pytest.raises(NotImplementedError, match="16-byte"):
+        da.decode_attention_cuda(q36, k36, k36, p)
+
+
+FLASH_CASES = [
+    # (B, H, KV, Sq, Sk, hd, window, dtype): the sweep of
+    # tests/test_kernels.py, llama3-8b's prefill shape, then ragged S,
+    # hd = 16 and 120, MHA, and Sq != Sk
+    (2, 4, 2, 128, 128, 64, 0, torch.float32),
+    (2, 4, 2, 256, 256, 64, 0, torch.float32),
+    (2, 4, 2, 256, 256, 128, 64, torch.float32),
+    (2, 4, 2, 256, 256, 32, 0, torch.bfloat16),
+    (2, 4, 2, 512, 512, 64, 128, torch.bfloat16),
+    (1, 32, 8, 2048, 2048, 128, 0, torch.bfloat16),
+    (1, 32, 8, 2048, 2048, 128, 512, torch.bfloat16),
+    (2, 4, 2, 100, 100, 16, 0, torch.float32),
+    (1, 8, 2, 200, 200, 120, 50, torch.bfloat16),
+    (1, 3, 3, 70, 70, 256, 0, torch.float32),
+    (1, 4, 1, 64, 160, 64, 0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,window,dtype", FLASH_CASES)
+def test_flash_attention_kernel_equals_plain(cuda, B, H, KV, Sq, Sk, hd,
+                                             window, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(Sq + hd)
+    q = _normal(rng, (B, H, Sq, hd), dtype, cuda)
+    k = _normal(rng, (B, KV, Sk, hd), dtype, cuda)
+    v = _normal(rng, (B, KV, Sk, hd), dtype, cuda)
+    before = fa.launches.count
+    got = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches.count == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, attention_ref(q, k, v, causal=True, window=window), dtype)
+    if window == 0 and Sq == Sk:
+        _close(fa.flash_attention_cuda(q, k, v, causal=False),
+               attention_ref(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_on_card_kernels_equal_plain(cuda, dtype):
+    """decode_step and prefill on the card launch one kernel per layer
+    and agree with the plain versions (use_kernels=False)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import model as M
+    cfg = get_smoke_config("llama3-8b").with_(dtype=dtype)
+    params = M.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (3, 24), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    caches = {u: M.init_cache(cfg, 3, 32, device=cuda) for u in (True, False)}
+    da.launches.reset()
+    for i in range(24):
+        pos = torch.tensor([i, max(i - 3, 0), i // 2], dtype=torch.int32,
+                           device=cuda)
+        out = {}
+        for u in (True, False):
+            out[u], caches[u] = M.decode_step(params, cfg, toks[:, i:i + 1],
+                                              pos, caches[u], use_kernels=u)
+        scale = float(out[False].abs().max())
+        assert float((out[True] - out[False]).abs().max()) <= 2e-2 * scale
+    assert da.launches.count == 24 * cfg.num_layers
+    fa.launches.reset()
+    last = M.prefill(params, cfg, tokens=toks)
+    ref = M.prefill(params, cfg, tokens=toks, use_kernels=False)
+    assert fa.launches.count == cfg.num_layers
+    assert float((last - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
