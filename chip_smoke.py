@@ -32,15 +32,27 @@ port's paths through the entry points a user calls:
     bf16 (before the path, on the weights and prompts of three seeds) and
     in float32 at the same width and depth on the prompt's first 64 tokens
     (after it).  A profile of one full-width decode step then splits its
-    device time by kernel and gives the card's busy share.
+    device time by kernel and gives the card's busy share;
+  * Mamba2 path: the ssd_scan kernel against its plain version (the
+    sequential recurrence) at the prefill shape below and the shapes of
+    tests/test_kernels.py, then mamba2-130m at full width (24 layers,
+    d_model 768, state 128, 24 heads of 64, vocab 50280, bf16, random
+    weights from ``--seed``): gates holding ``forward`` / ``prefill``
+    with the kernel against the token-by-token ``decode_step`` recurrence
+    over every position of a 512-token prompt (two chunks) and against
+    the plain chunked form, in float32 (the gate that decides) and in
+    bf16, on three seeds each; then the same engine and 8-request traffic
+    as the serve path, and one ``prefill`` at B = 4, S = 8192 (cut from
+    32 x 32768): ssd_scan on every prefill layer, no kernel on decode.
+    A profile of one decode step follows.
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; it must launch its own kernel and no other.  The
-second-to-last line of stdout is a JSON object with one entry per kernel
-(launches, error against the plain version, kernel, plain and bound
-times); the last line is ``{"ok": true, "device": ...}``.  Any failed phase
-raises, and the script exits non-zero without a result — also when no
-CUDA device is present.
+second-to-last line of stdout is a JSON object with one entry per kernel,
+eight, ssd_scan last (launches, error against the plain version, kernel,
+plain, bound and library times); the last line is ``{"ok": true,
+"device": ...}``.  Any failed phase raises, and the script exits non-zero
+without a result — also when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -447,7 +459,7 @@ def gate_on_seed(cfg, dev, seed: int, P: int) -> None:
         raise AssertionError(f"serve: {tag} teacher-forced gate failed")
 
 
-def profile_decode_step(cfg, params, dev) -> None:
+def profile_decode_step(cfg, params, dev, tag: str = "serve") -> None:
     """Where a full-width decode step's time goes: the host time to issue
     one step of the serve path's 4 rows, at spread positions of a
     2048-entry cache, against the step's synchronised time, then the
@@ -471,14 +483,50 @@ def profile_decode_step(cfg, params, dev) -> None:
     issued = time.perf_counter() - t0
     torch.cuda.synchronize()
     done = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    print(f"{tag} profile: decode step B={B} C={C} positions {pos.tolist()}: "
+          f"enqueued in {issued * 1e3:.2f} ms, done in {done * 1e3:.2f} ms "
+          f"(host clock)")
+    device_split(tag, prof, wall_us, steps, "step")
+
+
+def profile_prefill(cfg, params, dev, tokens, tag: str = "mamba") -> None:
+    """Where a prefill's time goes: the device time of one ``prefill`` of
+    ``tokens`` (after a warm-up) by kernel under ``torch.profiler``, and
+    the card's busy share of that window."""
+    import torch
+    from repro_torch.models import model as M
+    M.prefill(params, cfg, tokens=tokens)
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        M.prefill(params, cfg, tokens=tokens)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    B, S = tokens.shape
+    print(f"{tag} profile: prefill B={B} S={S}")
+    device_split(tag, prof, wall_us, 1, "prefill")
+
+
+def profiled():
+    """A ``torch.profiler`` context recording host and device activity."""
+    import torch
+    return torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+
+def device_split(tag: str, prof, wall_us: float, reps: int,
+                 unit: str) -> None:
+    """Print the device time of ``reps`` runs of one ``unit`` recorded by
+    ``prof`` in a ``wall_us`` window: the busy share, the time per run,
+    the matrix products' share and the ten largest kernels."""
+    import torch
     times: dict[str, float] = {}
     launches = 0
     for e in prof.key_averages():
@@ -486,24 +534,63 @@ def profile_decode_step(cfg, params, dev) -> None:
             times[e.key] = times.get(e.key, 0.0) + e.self_device_time_total
             launches += e.count
     busy = sum(times.values())
-    print(f"serve profile: decode step B={B} C={C} positions {pos.tolist()}: "
-          f"issue {issued * 1e3:.2f} ms, step {done * 1e3:.2f} ms (host "
-          f"clock)")
     if busy == 0:
-        print("serve profile: the profiler recorded no device time: device "
+        print(f"{tag} profile: the profiler recorded no device time: device "
               "time not measured")
         return
-    print(f"serve profile: {steps} steps under the profiler: wall "
+    print(f"{tag} profile: {reps} x {unit} under the profiler: wall "
           f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-          f"({busy / wall_us:.1%}); per step {busy / steps / 1e3:.2f} ms of "
-          f"device time in {launches // steps} kernel launches")
+          f"({busy / wall_us:.1%}); per {unit} {busy / reps / 1e3:.2f} ms of "
+          f"device time in {launches // reps} kernel launches")
     gemm = sum(us for name, us in times.items()
                if "nvjet" in name or "gemm" in name.lower())
-    print(f"serve profile: matrix products (cuBLAS kernels) "
-          f"{gemm / steps / 1e3:.3f} ms/step ({gemm / busy:.1%})")
+    print(f"{tag} profile: matrix products (cuBLAS kernels) "
+          f"{gemm / reps / 1e3:.3f} ms/{unit} ({gemm / busy:.1%})")
     for name, us in sorted(times.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"serve profile:  {us / steps / 1e3:8.3f} ms/step "
+        print(f"{tag} profile:  {us / reps / 1e3:8.3f} ms/{unit} "
               f"{us / busy:6.1%}  {name[:90]}")
+
+
+def timed_engine(cfg, params, dev):
+    """The serve paths' engine, ``ServingEngine(num_replicas=2, b_slots=4,
+    c_max=2048, policy="bf", audit=True)``, with each replica's decode
+    timed on the host clock (it ends in the greedy tokens' copy to the
+    host); returns the engine and the list the times go to."""
+    from repro_torch.serving.engine import ServingEngine
+    engine = ServingEngine(cfg, params, num_replicas=2, b_slots=4,
+                           c_max=2048, policy="bf", audit=True, device=dev)
+    decode_s = []
+    for rep in engine.replicas:
+        def timed(toks, positions, _decode=rep.decode):
+            t0 = time.perf_counter()
+            out = _decode(toks, positions)          # ends in a host copy
+            decode_s.append(time.perf_counter() - t0)
+            return out
+        rep.decode = timed
+    return engine, decode_s
+
+
+def serve_requests(rng, vocab: int) -> list:
+    """The serve paths' traffic: 8 requests, prompts U[256, 1024] tokens,
+    U[16, 64] new tokens, submitted at once."""
+    from repro_torch.serving.engine import Request
+    lengths = rng.integers(256, 1025, 8)       # drawn before the tokens,
+    max_new = rng.integers(16, 65, 8)          # so they do not depend on
+    return [Request(rid=i, prompt=rng.integers(  # the vocabulary size
+                1, vocab, int(n)).astype(np.int32), max_new=int(m))
+            for i, (n, m) in enumerate(zip(lengths, max_new))]
+
+
+def check_served(tag: str, cfg, engine, done) -> None:
+    """Every request completed with its tokens, in the vocabulary, and the
+    admission queue filled."""
+    if len(done) != 8 or any(len(r.out) != r.max_new for r in done):
+        raise AssertionError(f"{tag}: not every request completed with its "
+                             "max_new tokens")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
+        raise AssertionError(f"{tag}: a generated token is out of the vocab")
+    if not max(engine.stats["queue_len"]) > 0:
+        raise AssertionError(f"{tag}: the admission queue never filled")
 
 
 def serve_path(dev, seed: int, counters, reset_counters) -> dict:
@@ -512,7 +599,6 @@ def serve_path(dev, seed: int, counters, reset_counters) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    from repro_torch.serving.engine import Request, ServingEngine
 
     cfg = get_config("llama3-8b")
 
@@ -534,21 +620,8 @@ def serve_path(dev, seed: int, counters, reset_counters) -> dict:
     # -- the path: engine + one prefill at S = 2048 --------------------------
     rng = np.random.default_rng(seed)
     rng.integers(1, cfg.vocab_size, (1, 256))     # the gates' prompt first
-    engine = ServingEngine(cfg, params, num_replicas=2, b_slots=4,
-                           c_max=2048, policy="bf", audit=True, device=dev)
-    decode_s = []
-    for rep in engine.replicas:
-        def timed(toks, positions, _decode=rep.decode):
-            t0 = time.perf_counter()
-            out = _decode(toks, positions)          # ends in a host copy
-            decode_s.append(time.perf_counter() - t0)
-            return out
-        rep.decode = timed
-    lengths = rng.integers(256, 1025, 8)       # drawn before the tokens,
-    max_new = rng.integers(16, 65, 8)          # so they do not depend on
-    reqs = [Request(rid=i, prompt=rng.integers(  # the vocabulary size
-                1, cfg.vocab_size, int(n)).astype(np.int32), max_new=int(m))
-            for i, (n, m) in enumerate(zip(lengths, max_new))]
+    engine, decode_s = timed_engine(cfg, params, dev)
+    reqs = serve_requests(rng, cfg.vocab_size)
     frac = sum(r.tokens_needed for r in reqs) / 2048
     long_prompt = torch.from_numpy(rng.integers(
         1, cfg.vocab_size, (1, 2048)).astype(np.int64)).to(dev)
@@ -566,13 +639,7 @@ def serve_path(dev, seed: int, counters, reset_counters) -> dict:
 
     ticks = len(engine.stats["queue_len"])
     calls = len(decode_s)
-    if len(done) != 8 or any(len(r.out) != r.max_new for r in done):
-        raise AssertionError("serve: not every request completed with its "
-                             "max_new tokens")
-    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
-        raise AssertionError("serve: a generated token is out of the vocab")
-    if not max(engine.stats["queue_len"]) > 0:
-        raise AssertionError("serve: the admission queue never filled")
+    check_served("serve", cfg, engine, done)
     if launches["decode_attention"] != cfg.num_layers * calls \
             or launches["flash_attention"] != cfg.num_layers:
         raise AssertionError(f"serve: launches {launches}, expected "
@@ -614,6 +681,231 @@ def serve_path(dev, seed: int, counters, reset_counters) -> dict:
     return launches
 
 
+#: Tolerance of the ssd_scan kernel against its plain version (the
+#: sequential recurrence), |a - b| <= atol + rtol |b|: tests/test_kernels.py's.
+SSD_TOL = {"float32": (1e-4, 1e-2), "bfloat16": (5e-2, 1e-2)}
+
+#: Limits of the Mamba2 gates at mamba2-130m's full width and depth, as
+#: max |diff| / max |logit| over a 512-token prompt: ``forward`` with the
+#: kernel against the token-by-token recurrence (``recurrence``),
+#: ``prefill`` against the last decode step (``prefill``), and ``forward``
+#: with the kernel against the plain chunked form (``plain``).  float32
+#: decides: sound runs read at most 5.5e-6, and a kernel that drops the
+#: inter-chunk term or shifts the cumsum by one position reads 0.026 or
+#: more.  In bf16, 24 layers of rounding put the recurrence readings at
+#: 0.033-0.044 with or without the kernel, where those faults also fall,
+#: so those two are a sanity check against gross faults; ``plain`` (sound
+#: 0.022-0.024, the faults 0.045-0.047) still sees them.  Seeds 0-2 and
+#: the faults: PERF.md, section 6.
+MAMBA_GATE_TOL = {
+    "float32": {"recurrence": 1e-4, "prefill": 1e-4, "plain": 1e-4},
+    "bfloat16": {"recurrence": 7e-2, "prefill": 7e-2, "plain": 3.5e-2}}
+MAMBA_GATE_SEEDS = 3
+
+
+def ssd_work(B, H, G, nc, Lc, hd, N, itemsize) -> tuple[float, float]:
+    """Bytes and operations of one ssd_scan call.  Bytes: xdt and a read
+    once, Bm and Cm (G groups) read once, y written once.  Operations per
+    chunk and head, over the causal pairs j <= i only (as flash_phase
+    counts them): C B^T and its product with x, Lc (Lc + 1) (N + hd), then
+    C S^T and the state update, 4 Lc hd N."""
+    nbytes = itemsize * nc * Lc * B * (H * (2 * hd + 1) + G * 2 * N)
+    ops = B * H * nc * (Lc * (Lc + 1) * (N + hd) + 4 * Lc * hd * N)
+    return nbytes, ops
+
+
+def ssd_check(what: str, got, ref) -> tuple[float, float]:
+    """Hold the ssd_scan kernel to its plain version within ``SSD_TOL``;
+    returns the max abs error and max |diff| / max |y|."""
+    atol, rtol = SSD_TOL[str(got.dtype).removeprefix("torch.")]
+    a, b = got.double(), ref.double()
+    diff = (a - b).abs()
+    err, rel = float(diff.max()), float(diff.max() / b.abs().max())
+    if not bool((diff <= atol + rtol * b.abs()).all()):
+        raise AssertionError(f"{what}: max abs err {err:.3g} against the "
+                             f"plain version, over atol {atol} rtol {rtol}")
+    return err, rel
+
+
+def ssd_phase(dev, seed: int) -> dict:
+    """ssd_scan kernel against its plain version at the Mamba2 path's
+    prefill shape (B = 4, S = 8192 in 32 chunks of 256, mamba2-130m's 24
+    heads of 64 reading one group of N = 128, float32 as ``mamba_apply``
+    gives it), at the shapes of tests/test_kernels.py (per-head B and C)
+    and with two groups of two heads; timings at the prefill shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def inputs(B, H, G, nc, Lc, hd, N, dtype):
+        def normal(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        return ((normal(B, H, nc, Lc, hd) * 0.5).to(dtype),
+                (normal(B, G, nc, Lc, N) * 0.5).to(dtype),
+                (normal(B, G, nc, Lc, N) * 0.5).to(dtype),
+                (-F.softplus(normal(B, H, nc, Lc))).to(dtype))
+
+    row = {}
+    for B, H, G, nc, Lc, hd, N, dtype in (
+            (4, 24, 1, 32, 256, 64, 128, torch.float32),
+            (2, 3, 3, 2, 32, 16, 8, torch.float32),
+            (2, 3, 3, 4, 64, 32, 16, torch.float32),
+            (2, 3, 3, 4, 64, 64, 32, torch.bfloat16),
+            (1, 1, 1, 8, 16, 8, 4, torch.float32),
+            (2, 4, 2, 3, 16, 16, 16, torch.float32)):
+        args = inputs(B, H, G, nc, Lc, hd, N, dtype)
+        got = sk.ssd_scan_cuda(*args)
+        torch.cuda.synchronize()
+        ref = ssd_ref(*args)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        what = (f"ssd_scan B={B} H={H} G={G} nc={nc} Lc={Lc} hd={hd} N={N} "
+                f"{tag}")
+        err, rel = ssd_check(what, got, ref)
+        atol, rtol = SSD_TOL[str(dtype).removeprefix("torch.")]
+        line = (f"{what}: max abs err {err:.3g}, max |diff| / max |y| "
+                f"{rel:.3g} vs plain (atol {atol:g}, rtol {rtol:g})")
+        if not row:
+            ms = time_ms(lambda: sk.ssd_scan_cuda(*args), 10)
+            plain_ms = time_ms(lambda: ssd_ref(*args), 1)
+            nbytes, ops = ssd_work(B, H, G, nc, Lc, hd, N, 4)
+            b_ms, b_by = bound(nbytes, ops)
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                     f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e9:.3f} GB, "
+                     f"{ops / 1e9:.1f} GFLOP at {FP32_OPS_PER_S:.3g}/s)")
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        print(line)
+        del args, got, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def mamba_gate(cfg, dev, seed: int, P: int = 512) -> None:
+    """The Mamba2 gate at full width on ``seed``'s weights and P-token
+    prompt: ``forward`` with the kernel against the token-by-token
+    ``decode_step`` recurrence at every position (the chunked dual form
+    against the O(1) recurrence: independent computations), ``prefill``
+    against the last decode step, and ``forward`` with the kernel against
+    ``forward`` with the plain chunked form, each as max |diff| / max
+    |logit| within ``MAMBA_GATE_TOL``.  Also printed: the plain form
+    against the recurrence (the model's own rounding, no kernel in it)."""
+    import torch
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, P))
+                              .astype(np.int64)).to(dev)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    caches = M.init_cache(cfg, 1, P, device=dev)
+    steps = []
+    for i in range(P):
+        out, caches = M.decode_step(params, cfg, prompt[:, i:i + 1], i,
+                                    caches)
+        steps.append(out[:, 0])
+    rec = torch.cat(steps)                                   # (P, V)
+    full = M.forward(params, cfg, tokens=prompt)[0][0]
+    plain = M.forward(params, cfg, tokens=prompt, use_kernels=False)[0][0]
+    last = M.prefill(params, cfg, tokens=prompt)[0]
+    del params, caches
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+    r = dict(recurrence=rel(full, rec), prefill=rel(last, rec[-1]),
+             plain=rel(full, plain), floor=rel(plain, rec))
+    tol = MAMBA_GATE_TOL[cfg.dtype]
+    tag = f"{'bf16' if cfg.dtype == 'bfloat16' else 'f32'} seed {seed}"
+    print(f"mamba: {P}-token prompt, {tag} {cfg.num_layers} layers: max "
+          f"|diff| / max |logit| of forward (ssd_scan) vs the decode "
+          f"recurrence {r['recurrence']:.4g} over all {P} positions (gate "
+          f"{tol['recurrence']:g}), prefill vs last decode step "
+          f"{r['prefill']:.4g} (gate {tol['prefill']:g}), forward vs the "
+          f"plain chunked form {r['plain']:.4g} (gate {tol['plain']:g}); the "
+          f"plain form vs the recurrence {r['floor']:.4g}")
+    failed = [k for k, limit in tol.items() if not r[k] <= limit]
+    if failed:
+        raise AssertionError(f"mamba: {tag} gate failed: {failed}")
+
+
+def mamba_path(dev, seed: int, counters, reset_counters) -> dict:
+    """The Mamba2 path at mamba2-130m's full width: the gates, then 8
+    requests through the serving engine and one prefill at B = 4,
+    S = 8192; returns the kernels' launches in the path's run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("mamba2-130m")
+    for dtype in ("float32", "bfloat16"):
+        for s in range(seed, seed + MAMBA_GATE_SEEDS):
+            mamba_gate(cfg.with_(dtype=dtype), dev, s)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+    n_params = sum(x.numel() for layer in params["layers"]
+                   for part in layer.values() for x in part.values()) \
+        + params["embed"]["w"].numel()
+    print(f"mamba: mamba2-130m {cfg.num_layers} layers d_model {cfg.d_model} "
+          f"ssm_state {cfg.ssm_state} heads {cfg.ssm_heads} x "
+          f"{cfg.ssm_head_dim} vocab {cfg.vocab_size} {cfg.dtype}: "
+          f"{n_params / 1e6:.1f} M parameters (tied head)")
+
+    rng = np.random.default_rng(seed)
+    engine, decode_s = timed_engine(cfg, params, dev)
+    reqs = serve_requests(rng, cfg.vocab_size)
+    frac = sum(r.tokens_needed for r in reqs) / 2048
+    # cut from PREFILL_32K (32 x 32768) for the run's time
+    long_prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (4, 8192)).astype(np.int64)).to(dev)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.submit(reqs)
+    done = engine.run(max_steps=20_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prefill_wall_ms, out = wall_ms(lambda: M.prefill(params, cfg,
+                                                     tokens=long_prompt))
+    launches = {n: c.count for n, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    ticks = len(engine.stats["queue_len"])
+    calls = len(decode_s)
+    check_served("mamba", cfg, engine, done)
+    if launches["ssd_scan"] != cfg.num_layers or any(
+            c for n, c in launches.items() if n != "ssd_scan"):
+        raise AssertionError(f"mamba: launches {launches}, expected "
+                             f"{cfg.num_layers} ssd_scan for the prefill, "
+                             f"none per decode step, no other kernel")
+    if out.shape != (4, cfg.vocab_size) or not bool(torch.isfinite(out)
+                                                   .all()):
+        raise AssertionError("mamba: prefill logits bad shape or values")
+    generated = sum(len(r.out) for r in done)
+    processed = sum(r.pos for r in done)
+    prefill_ms = time_ms(lambda: M.prefill(params, cfg, tokens=long_prompt),
+                         3)
+    print(f"mamba path: 8 requests, KV demand {frac:.3f} replicas of 2, max "
+          f"queue {max(engine.stats['queue_len'])}, admitted "
+          f"{engine.stats['admitted']}, slot rejections "
+          f"{engine.stats['rejected_slots']}; {ticks} ticks, {calls} replica "
+          f"decode steps in {wall:.2f} s; generated {generated} tokens "
+          f"({generated / wall:.1f} tokens/s), processed {processed} tokens "
+          f"({processed / wall:.1f} tokens/s); decode step "
+          f"{np.mean(decode_s) * 1e3:.2f} ms mean per replica tick (host "
+          f"clock, synchronised); prefill B=4 S=8192 (cut from 32 x 32768) "
+          f"{prefill_wall_ms:.1f} ms in the path, {prefill_ms:.1f} ms (CUDA "
+          f"events, mean of 3); device memory peak {peak_gb:.2f} GB; "
+          f"launches ssd_scan {launches['ssd_scan']} (0 per decode step)")
+    del engine
+    profile_prefill(cfg, params, dev, long_prompt)
+    profile_decode_step(cfg, params, dev, tag="mamba")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -642,6 +934,7 @@ def main() -> int:
     from repro_torch.kernels.vqs_bf.ref import vqs_bf_ref
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
     warnings.simplefilter("error", GracefulDegradationWarning)
     counters = {"best_fit": bf_kernel.launches,
                 "bfjs": bfjs_kernel.launches,
@@ -649,7 +942,8 @@ def main() -> int:
                 "vqs": vqs_kernel.launches,
                 "vqs_bf": vqs_bf_kernel.launches,
                 "decode_attention": da.launches,
-                "flash_attention": fa.launches}
+                "flash_attention": fa.launches,
+                "ssd_scan": sk.launches}
 
     def reset_counters():
         for c in counters.values():
@@ -992,10 +1286,23 @@ def main() -> int:
     for name in ("decode_attention", "flash_attention"):
         rows[name]["launches"] = launches[name]
 
+    # -- 10. ssd_scan kernel vs plain at the Mamba2 prefill shape -------------
+    t_mamba = time.perf_counter()
+    rows["ssd_scan"] = dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:22",
+        **ssd_phase(dev, args.seed))
+
+    # -- 11. Mamba2 path: mamba2-130m at full width -----------------------------
+    launches = mamba_path(dev, args.seed, counters, reset_counters)
+    rows["ssd_scan"]["launches"] = launches["ssd_scan"]
+    print(f"mamba phases: {time.perf_counter() - t_mamba:.1f} s")
+
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     order = ("bfjs", "vqs", "vqs_bf", "bfjs_mr", "best_fit",
-             "decode_attention", "flash_attention")
+             "decode_attention", "flash_attention", "ssd_scan")
     print(json.dumps({"kernels": [rows[k] for k in order], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

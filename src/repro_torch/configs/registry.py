@@ -2,9 +2,10 @@
 architectures the port runs).
 
 The port runs the decoder stacks built of GQA attention and a dense (or
-no) FFN.  The JAX registry's other ids need a mixer or FFN the port has not
-ported yet; they raise ``NotImplementedError`` naming the ROADMAP item that
-will port them.  An id neither registry knows raises ``KeyError``.
+no) FFN, and the attention-free Mamba2 stack.  The JAX registry's other
+ids need a mixer or FFN the port has not ported yet; they raise
+``NotImplementedError`` naming the ROADMAP item that will port them.  An
+id neither registry knows raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -19,14 +20,13 @@ _MODULES = {
     "qwen2-72b": "qwen2_72b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "musicgen-medium": "musicgen_medium",
+    "mamba2-130m": "mamba2_130m",
 }
 ARCH_IDS = tuple(_MODULES)
 
 #: JAX-registry ids the port does not run yet -> the ROADMAP item.
 UNPORTED = {
-    "mamba2-130m": "ROADMAP queue 1 item 11b (Mamba2 and ssd_scan)",
-    "jamba-1.5-large-398b": "ROADMAP queue 1 items 11b (Mamba2) and 11e "
-                            "(MoE)",
+    "jamba-1.5-large-398b": "ROADMAP queue 1 item 11e (MoE)",
     "deepseek-v2-lite-16b": "ROADMAP queue 1 items 11d (MLA) and 11e (MoE)",
     "dbrx-132b": "ROADMAP queue 1 item 11e (MoE)",
 }

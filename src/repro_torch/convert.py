@@ -1,5 +1,5 @@
-"""Carry streams, scan state, results, model parameters and KV caches
-between the JAX package and the port as numpy arrays.
+"""Carry streams, scan state, results, model parameters, KV caches and Mamba
+caches between the JAX package and the port as numpy arrays.
 
 The two packages draw different random numbers from the same seed, so a
 parity check generates its inputs once (with either package), hands them
@@ -18,6 +18,7 @@ from .device import resolve_device
 from .models.attention import KVCache
 from .models.config import ModelConfig
 from .models.layers import cdtype
+from .models.mamba2 import FLOAT32_PARAMS, MambaCache
 
 _STATE_DTYPES = (torch.float32, torch.int32, torch.float32, torch.int32,
                  torch.int32, torch.int32, torch.int32, torch.int32,
@@ -100,15 +101,18 @@ def model_params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     """The port's parameter dictionary from the JAX ``init_params`` pytree as
     numpy (e.g. ``jax.tree.map(np.asarray, params)``).  The JAX layer leaves
     are stacked over periods under ``layers/p{p}``; layer ``l`` is period
-    ``l // period`` at position ``p = l % period``.  Norm scales stay
-    float32; every other leaf is cast to ``cfg.dtype``, the cast the JAX
-    package applies at use."""
+    ``l // period`` at position ``p = l % period``.  Norm scales and the
+    Mamba parameters the JAX package uses in float32
+    (``mamba2.FLOAT32_PARAMS``: ``A_log``, ``D_skip``, ``dt_bias``,
+    ``norm_scale``) stay float32; every other leaf is cast to
+    ``cfg.dtype``, the cast the JAX package applies at use."""
     device = resolve_device(device)
     dt = cdtype(cfg)
+    keep = ("scale", *FLOAT32_PARAMS)
 
     def leaf(name, x):
         x = torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
-        return x.to(device=device, dtype=torch.float32 if name == "scale"
+        return x.to(device=device, dtype=torch.float32 if name in keep
                     else dt)
 
     def convert(node, pick=None):
@@ -160,4 +164,44 @@ def kv_caches_to_numpy(caches, cfg: ModelConfig) -> dict:
                 for name in ("k", "v"))
         out[f"p{p}"] = KVCache(k, v, np.array([int(c.length) for c in layers],
                                               dtype=np.int32))
+    return out
+
+
+def mamba_caches_from_numpy(tree, cfg: ModelConfig, device=None
+                            ) -> list[MambaCache]:
+    """The port's per-layer Mamba caches from the JAX ``init_cache`` /
+    ``decode_step`` caches of an attention-free stack as numpy (or from
+    :func:`mamba_caches_to_numpy`): ``{"p{p}": (conv, ssm, length)}`` with
+    conv (periods, B, k-1, conv_dim), ssm (periods, B, nh, hd, N) and
+    length (periods,).  conv in ``cfg.dtype``, ssm in float32; the layout
+    is the JAX one."""
+    device = resolve_device(device)
+    period = cfg.period
+    out = []
+    for l in range(cfg.num_layers):
+        conv, ssm, length = tree[f"p{l % period}"]
+        i = l // period
+
+        def move(x, dtype):
+            x = np.asarray(x, dtype=np.float32)[i]
+            return torch.from_numpy(x.copy()).to(device=device, dtype=dtype)
+        out.append(MambaCache(move(conv, cdtype(cfg)),
+                              move(ssm, torch.float32), torch.tensor(
+            int(np.asarray(length)[i]), dtype=torch.int32, device=device)))
+    return out
+
+
+def mamba_caches_to_numpy(caches, cfg: ModelConfig) -> dict:
+    """The JAX cache layout as float32 numpy, from the port's Mamba caches:
+    ``{"p{p}": MambaCache(conv, ssm (periods, B, ...), length (periods,))}``
+    (bfloat16 values are exact in float32)."""
+    period = cfg.period
+    out = {}
+    for p in range(period):
+        layers = caches[p::period]
+        conv, ssm = (np.stack([getattr(c, name).detach().float().cpu()
+                               .numpy() for c in layers])
+                     for name in ("conv", "ssm"))
+        out[f"p{p}"] = MambaCache(conv, ssm, np.array(
+            [int(c.length) for c in layers], dtype=np.int32))
     return out

@@ -1,4 +1,4 @@
-// Element I/O and lane-group reductions shared by the attention kernels.
+// Element I/O and lane-group reductions shared by the LM kernels.
 //
 // Inputs are float32 or bfloat16; every product and sum runs in float32,
 // as in the TPU kernels (`.astype(jnp.float32)` before each dot).  Masked

@@ -1,0 +1,11 @@
+"""Public entry point of the SSD chunk-scan kernel: the kernel for CUDA
+tensors, its plain version (``ref.ssd_ref``) for CPU tensors."""
+from __future__ import annotations
+
+from .ssd_scan import ssd_scan_cuda
+
+
+def ssd(xdt, Bm, Cm, a):
+    """xdt (B, H, nc, Lc, hd); Bm, Cm (B, G, nc, Lc, N), head h reading
+    group h // (H // G); a (B, H, nc, Lc)."""
+    return ssd_scan_cuda(xdt, Bm, Cm, a)

@@ -1,9 +1,9 @@
 """Decoder blocks (the port of ``repro.models.blocks``): pre-norm mixer +
 residual, then pre-norm FFN + residual.
 
-The port runs the ``("attn", "dense")`` and ``("attn", "none")`` layers.
-The MLA, Mamba and MoE kinds raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+The port runs the ``attn`` and ``mamba`` mixers with a dense or no FFN.
+The MLA and MoE kinds raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
@@ -12,11 +12,11 @@ import torch
 from .attention import attn_apply, attn_decode, attn_init, init_kv_cache
 from .config import ModelConfig
 from .layers import mlp_apply, mlp_init, rms_norm, rms_norm_init
+from .mamba2 import init_mamba_cache, mamba_apply, mamba_decode, mamba_init
 
 #: Layer kinds the port does not run yet -> the ROADMAP item.
 TODO = {
     "mla": "ROADMAP queue 1 item 11d (MLA)",
-    "mamba": "ROADMAP queue 1 item 11b (Mamba2 and ssd_scan)",
     "moe": "ROADMAP queue 1 item 11e (MoE)",
 }
 
@@ -31,9 +31,10 @@ def check_desc(cfg: ModelConfig, desc) -> None:
 
 def layer_init(cfg: ModelConfig, desc, generator, device, dtype) -> dict:
     check_desc(cfg, desc)
-    _, ffn_kind = desc
+    mixer_kind, ffn_kind = desc
+    init = attn_init if mixer_kind == "attn" else mamba_init
     p = {"mixer_norm": rms_norm_init(cfg.d_model, device),
-         "mixer": attn_init(cfg, generator, device, dtype)}
+         "mixer": init(cfg, generator, device, dtype)}
     if ffn_kind == "dense":
         p["ffn_norm"] = rms_norm_init(cfg.d_model, device)
         p["ffn"] = mlp_init(cfg.d_model, cfg.d_ff, generator, device, dtype)
@@ -50,25 +51,33 @@ def _ffn(params, x: torch.Tensor, cfg: ModelConfig, ffn_kind) -> torch.Tensor:
 def layer_apply(params, x, rope, cfg: ModelConfig, desc, *,
                 use_kernels: bool = True) -> torch.Tensor:
     """Full-sequence (train / prefill) layer; rope: the positions' RoPE
-    tables."""
+    tables (a Mamba layer reads none)."""
     check_desc(cfg, desc)
     h = rms_norm(params["mixer_norm"], x, cfg.norm_eps)
-    x = x + attn_apply(params["mixer"], h, rope, cfg, use_kernels=use_kernels)
-    return _ffn(params, x, cfg, desc[1])
+    if desc[0] == "attn":
+        h = attn_apply(params["mixer"], h, rope, cfg, use_kernels=use_kernels)
+    else:
+        h = mamba_apply(params["mixer"], h, cfg, use_kernels=use_kernels)
+    return _ffn(params, x + h, cfg, desc[1])
 
 
 def layer_cache_init(cfg: ModelConfig, desc, batch: int, cache_len: int,
                      device):
     check_desc(cfg, desc)
-    return init_kv_cache(cfg, batch, cache_len, device)
+    if desc[0] == "attn":
+        return init_kv_cache(cfg, batch, cache_len, device)
+    return init_mamba_cache(cfg, batch, device)
 
 
 def layer_decode(params, x, pos, rope, cache, cfg: ModelConfig, desc, *,
                  use_kernels: bool = True):
     """One-token decode step.  x: (B, 1, D); pos: (B,) int32; rope: its
-    RoPE tables."""
+    RoPE tables (a Mamba layer reads neither)."""
     check_desc(cfg, desc)
     h = rms_norm(params["mixer_norm"], x, cfg.norm_eps)
-    h, cache = attn_decode(params["mixer"], h, pos, rope, cache, cfg,
-                           use_kernels=use_kernels)
+    if desc[0] == "attn":
+        h, cache = attn_decode(params["mixer"], h, pos, rope, cache, cfg,
+                               use_kernels=use_kernels)
+    else:
+        h, cache = mamba_decode(params["mixer"], h, cache, cfg)
     return _ffn(params, x + h, cfg, desc[1]), cache

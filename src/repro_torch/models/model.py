@@ -5,9 +5,10 @@ Parameters: ``{"embed": {"w"}, "head": {"w"}, "layers": [one dict per
 layer], "final_norm": {"scale"}}``.  The JAX package stacks each period
 position's layers for ``lax.scan``; here layer ``l`` is
 ``params["layers"][l]`` with descriptor ``cfg.layer_program()[l % period]``,
-and the scan is a loop.  Matrices are stored in ``cfg.dtype`` and norm
-scales in float32 (the JAX package stores float32 and casts at use, which
-gives the same values).
+and the scan is a loop.  Matrices are stored in ``cfg.dtype``, norm scales
+and the Mamba parameters the JAX package uses in float32
+(``mamba2.FLOAT32_PARAMS``) in float32 (the JAX package stores float32 and
+casts at use, which gives the same values).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from .blocks import (check_desc, layer_apply, layer_cache_init, layer_decode,
 from .config import ModelConfig
 from .layers import (cdtype, embed_apply, embed_init, head_apply, rms_norm,
                      rms_norm_init, rope_tables)
+from .mamba2 import MambaCache
 
 
 def layer_descs(cfg: ModelConfig) -> list:
@@ -61,6 +63,10 @@ def _inputs(params, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
     return embeds.to(cdtype(cfg))
 
 
+def _has_attention(cfg: ModelConfig) -> bool:
+    return any(desc[0] == "attn" for desc in layer_descs(cfg))
+
+
 def hidden_states(params: dict, cfg: ModelConfig, *, tokens=None,
                   embeds=None, positions=None,
                   use_kernels: bool = True) -> torch.Tensor:
@@ -70,8 +76,10 @@ def hidden_states(params: dict, cfg: ModelConfig, *, tokens=None,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
-    # every layer rotates at the same positions: one set of RoPE tables
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    # every attention layer rotates at the same positions: one set of RoPE
+    # tables, none for an attention-free stack
+    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta) \
+        if _has_attention(cfg) else None
     for p, desc in zip(params["layers"], layer_descs(cfg)):
         x = layer_apply(p, x, rope, cfg, desc, use_kernels=use_kernels)
     return x
@@ -81,7 +89,8 @@ def forward(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
             positions=None, use_kernels: bool = True
             ) -> tuple[torch.Tensor, dict]:
     """Returns (logits (B, S, V), aux metrics).  ``use_kernels=False`` runs
-    the attention kernels' plain versions on any device."""
+    the attention kernels' plain versions and the plain chunked SSD scan
+    (``mamba2.ssd_chunk_scan``) on any device."""
     x = hidden_states(params, cfg, tokens=tokens, embeds=embeds,
                       positions=positions, use_kernels=use_kernels)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
@@ -104,16 +113,19 @@ def prefill(params: dict, cfg: ModelConfig, *, tokens=None, embeds=None,
 # decode (serve)
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device=None) -> list[KVCache]:
-    """One cache per layer, in layer order."""
+               device=None) -> list[KVCache | MambaCache]:
+    """One cache per layer, in layer order: a ``KVCache`` for an attention
+    layer, a ``MambaCache`` (conv window and SSM state; ``cache_len`` does
+    not enter) for a Mamba layer."""
     device = resolve_device(device)
     return [layer_cache_init(cfg, d, batch, cache_len, device)
             for d in layer_descs(cfg)]
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens_or_embeds, pos,
-                caches: list[KVCache], *, use_kernels: bool = True
-                ) -> tuple[torch.Tensor, list[KVCache]]:
+                caches: list[KVCache | MambaCache], *,
+                use_kernels: bool = True
+                ) -> tuple[torch.Tensor, list[KVCache | MambaCache]]:
     """One decode step for the whole batch.
 
     tokens_or_embeds: (B, 1) int tokens or (B, 1, D) embeds; pos: (B,) int32
@@ -128,7 +140,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens_or_embeds, pos,
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
     pos = pos.expand(B).contiguous() if pos.ndim == 0 else pos
     rope = rope_tables(pos.reshape(B, 1), cfg.resolved_head_dim,
-                       cfg.rope_theta)
+                       cfg.rope_theta) if _has_attention(cfg) else None
     new_caches = []
     for p, desc, cache in zip(params["layers"], layer_descs(cfg), caches):
         x, cache = layer_decode(p, x, pos, rope, cache, cfg, desc,

@@ -10,6 +10,13 @@ cache — the paper's job size.  Admission runs BF-J/S
 The engine is single-host but replica-sharded by construction: each
 replica owns its params reference, cache pool and slot map.  Replicas may
 share one parameter dictionary (the weights are only read).
+
+As in the JAX engine, a slot's cache is never reset: a finished request
+leaves its state behind, and empty slots keep decoding token 0.  For an
+attention model that is harmless (a new request overwrites the rows it
+attends to); for a Mamba model the next request in the slot starts from
+the SSM and conv state left there.  The port keeps that behaviour so
+that its tokens and caches equal the JAX engine's.
 """
 from __future__ import annotations
 

@@ -155,7 +155,9 @@ def test_import_leaves_jax_and_repro_unloaded():
         "'kernels.bfjs_mr.bfjs_mr', 'models.model', 'models.attention', "
         "'configs.registry', 'configs.llama3_8b', 'cluster.admission', "
         "'serving.engine', 'kernels.decode_attention.decode_attention', "
-        "'kernels.flash_attention.flash_attention'):\n"
+        "'kernels.flash_attention.flash_attention', 'models.mamba2', "
+        "'configs.mamba2_130m', 'kernels.ssd_scan.ssd_scan', "
+        "'kernels.ssd_scan.ops', 'kernels.ssd_scan.ref'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

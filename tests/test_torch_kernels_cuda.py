@@ -462,3 +462,106 @@ def test_model_on_card_kernels_equal_plain(cuda, dtype):
     ref = M.prefill(params, cfg, tokens=toks, use_kernels=False)
     assert fa.launches.count == cfg.num_layers
     assert float((last - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD chunk-scan kernel (ssd_scan)
+# ---------------------------------------------------------------------------
+SSD_CASES = [
+    # (B, H, G, nc, Lc, hd, N, dtype): the sweep of tests/test_kernels.py
+    # and its state-continuity shape (per-head B and C, G = H),
+    # mamba2-130m's smoke and full widths with one group (as mamba_apply
+    # passes them), two groups of three heads, then ragged Lc, hd and N,
+    # one chunk shorter than a tile, and the longest chunk the kernel takes
+    (2, 3, 3, 2, 32, 16, 8, torch.float32),
+    (2, 3, 3, 4, 64, 32, 16, torch.float32),
+    (2, 3, 3, 4, 64, 64, 32, torch.bfloat16),
+    (1, 1, 1, 8, 16, 8, 4, torch.float32),
+    (2, 4, 1, 3, 16, 16, 16, torch.float32),
+    (2, 4, 1, 3, 256, 64, 128, torch.float32),
+    (1, 6, 2, 2, 256, 64, 128, torch.bfloat16),
+    (2, 2, 2, 3, 100, 40, 50, torch.float32),
+    (1, 2, 1, 4, 7, 64, 128, torch.float32),
+    (1, 2, 2, 1, 1024, 16, 16, torch.float32),
+]
+
+
+def _ssd_inputs(rng, B, H, nc, Lc, hd, N, dtype, device, G=None):
+    G = H if G is None else G
+    x = _normal(rng, (B, H, nc, Lc, hd), torch.float32, device) * 0.5
+    b = _normal(rng, (B, G, nc, Lc, N), torch.float32, device) * 0.5
+    c = _normal(rng, (B, G, nc, Lc, N), torch.float32, device) * 0.5
+    a = -torch.nn.functional.softplus(
+        _normal(rng, (B, H, nc, Lc), torch.float32, device))
+    return tuple(t.to(dtype) for t in (x, b, c, a))
+
+
+@pytest.mark.parametrize("B,H,G,nc,Lc,hd,N,dtype", SSD_CASES)
+def test_ssd_scan_kernel_equals_plain(cuda, B, H, G, nc, Lc, hd, N, dtype):
+    """The kernel against the sequential recurrence, within the tolerances
+    of tests/test_kernels.py (f32 atol 1e-4, bf16 5e-2; rtol 1e-2)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    args = _ssd_inputs(np.random.default_rng(Lc + hd + N), B, H, nc, Lc,
+                       hd, N, dtype, cuda, G)
+    before = sk.launches.count
+    got = sk.ssd_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert sk.launches.count == before + 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    atol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ssd_ref(*args).float().cpu().numpy(),
+                               atol=atol, rtol=1e-2)
+
+
+def test_ssd_scan_kernel_takes_strided_inputs_and_refuses_past_its_widths(
+        cuda):
+    """Views in the model's layout are made contiguous, not misread; a
+    width past the kernel's instances raises NotImplementedError."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    args = _ssd_inputs(np.random.default_rng(1), 2, 3, 2, 32, 16, 8,
+                       torch.float32, cuda)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in args]
+    assert not views[0].is_contiguous()
+    np.testing.assert_allclose(sk.ssd_scan_cuda(*views).cpu().numpy(),
+                               ssd_ref(*args).cpu().numpy(), atol=1e-4,
+                               rtol=1e-2)
+    x, b, c, a = _ssd_inputs(np.random.default_rng(2), 1, 1, 1, 16, 128, 8,
+                             torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="hd <= 64"):
+        sk.ssd_scan_cuda(x, b, c, a)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_model_on_card_kernel_equals_plain(cuda, dtype):
+    """mamba2-130m at full width and depth on the card: prefill through the
+    kernel launches it once a layer, decode launches nothing, and forward
+    agrees with the plain chunked form and with the token-by-token
+    recurrence over two chunks."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models import model as M
+    cfg = get_config("mamba2-130m").with_(dtype=dtype)
+    params = M.init_params(cfg, 0, device=cuda)
+    P = 512
+    toks = torch.randint(0, cfg.vocab_size, (2, P), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    sk.launches.reset()
+    full, _ = M.forward(params, cfg, tokens=toks)
+    assert sk.launches.count == cfg.num_layers
+    plain, _ = M.forward(params, cfg, tokens=toks, use_kernels=False)
+    caches = M.init_cache(cfg, 2, P, device=cuda)
+    steps = []
+    for i in range(P):
+        out, caches = M.decode_step(params, cfg, toks[:, i:i + 1], i, caches)
+        steps.append(out[:, 0])
+    assert sk.launches.count == cfg.num_layers
+    rec = torch.stack(steps, 1)
+    # chip_smoke.MAMBA_GATE_TOL's limits (readings in PERF.md)
+    tol_plain, tol_rec = (1e-4, 1e-4) if dtype == "float32" else (3.5e-2,
+                                                                  7e-2)
+    scale = float(rec.abs().max())
+    assert float((full - plain).abs().max()) <= tol_plain * scale
+    assert float((full - rec).abs().max()) <= tol_rec * scale
