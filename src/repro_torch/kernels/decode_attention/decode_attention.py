@@ -3,7 +3,13 @@
 
 For CUDA tensors :func:`decode_attention_cuda` launches the kernel (or
 raises); for CPU tensors it runs the plain version,
-``ref.decode_attention_ref``.  ``launches`` counts kernel launches only."""
+``ref.decode_attention_ref``.  ``launches`` counts kernel launches only:
+one per call, the split over the cache and its merge being one launch.
+
+The launch's grid depends on the shapes only (the cluster size comes
+from B, H, KV and C) and the kernel reads ``pos`` on the device, so a call
+on a (B,) int32 CUDA ``pos`` can be captured in a CUDA graph and replayed
+after ``pos`` changes in place."""
 from __future__ import annotations
 
 import ctypes
@@ -18,6 +24,8 @@ launches = LaunchCounter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DTYPES = (torch.float32, torch.bfloat16)
+#: Largest head dim the kernel takes (32 lanes of 16 elements share a row).
+MAX_HEAD_DIM = 512
 
 
 def _lib() -> ctypes.CDLL:
@@ -27,8 +35,16 @@ def _lib() -> ctypes.CDLL:
                                             _I, _I, _I, ctypes.c_float, _I,
                                             _P]
     lib.decode_attention_shared_bytes.restype = ctypes.c_longlong
-    lib.decode_attention_shared_bytes.argtypes = [_I, _I, _I]
+    lib.decode_attention_shared_bytes.argtypes = [_I, _I]
+    lib.decode_attention_cluster_size.restype = ctypes.c_int
+    lib.decode_attention_cluster_size.argtypes = [_I, _I, _I, _I]
     return lib
+
+
+def cluster_size(B: int, H: int, KV: int, C: int) -> int:
+    """Thread blocks that split the cache of each (row, kv head, group of
+    4 query heads) in a launch of this shape (builds the kernel)."""
+    return _lib().decode_attention_cluster_size(B, H, KV, C)
 
 
 def check_inputs(q, k, v) -> None:
@@ -50,7 +66,8 @@ def check_inputs(q, k, v) -> None:
 def decode_attention_cuda(q, k, v, pos, *, window: int = 0) -> torch.Tensor:
     """One-token GQA decode: q (B, H, hd), cache k, v (B, KV, C, hd), pos
     (B,) int32 (or a scalar for every row) -> (B, H, hd) in q's dtype.  One
-    thread block per (row, kv head)."""
+    cluster of thread blocks per (row, kv head, group of 4 query heads),
+    splitting its valid rows and merging them in the same launch."""
     check_inputs(q, k, v)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos, window=window)
@@ -64,20 +81,22 @@ def decode_attention_cuda(q, k, v, pos, *, window: int = 0) -> torch.Tensor:
             f"decode_attention kernel reads the cache in 16-byte vectors: "
             f"hd * {q.element_size()} bytes must be a multiple of 16, got "
             f"hd={hd}")
+    if hd > MAX_HEAD_DIM:
+        raise NotImplementedError(f"decode_attention kernel takes hd <= "
+                                  f"{MAX_HEAD_DIM}, got {hd}")
     pos = row_positions(pos, B, q.device)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     # a view into the middle of a storage may start off the 16-byte grid
-    k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (k, v))
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out
     lib = _lib()
-    smem = lib.decode_attention_shared_bytes(H // KV, hd, q.element_size())
+    smem = lib.decode_attention_shared_bytes(hd, q.element_size())
     if smem > SMEM_LIMIT_BYTES:
         raise NotImplementedError(
             f"decode_attention kernel needs {smem} bytes of shared memory "
-            f"for G={H // KV}, hd={hd}, over the {SMEM_LIMIT_BYTES}-byte "
-            "limit")
+            f"for hd={hd}, over the {SMEM_LIMIT_BYTES}-byte limit")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_launch(

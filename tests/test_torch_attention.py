@@ -22,8 +22,8 @@ from repro.kernels.flash_attention.ref import \
 from repro_torch.kernels.decode_attention import \
     decode_attention as da  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attn  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import \
-    decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref, merge_partials, share_bounds, share_partials)
 from repro_torch.kernels.flash_attention import \
     flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attention  # noqa: E402
@@ -125,6 +125,46 @@ def test_nothing_valid_gives_the_mean_of_v():
     _close(decode_attn(q, k, v, -1), ref, "float32")
 
 
+@pytest.mark.parametrize("pos,window,shares", [
+    ((0, 37, 130, 255), 0, 8),      # ragged; row 0's valid row in one share
+    ((200, 255, 9, 64), 40, 3),     # a window, shares off the row count
+    ((-1, 255, -1, 5), 0, 4),       # nothing valid in rows 0 and 2
+    ((3, 3, 3, 3), 16, 8),          # shares with no valid row
+    ((255, 100, 50, 0), 0, 1),      # one share: the single-block form
+])
+def test_share_merge_equals_the_whole_softmax(pos, window, shares):
+    """The decode kernel's split over the cache and its combine (per-share
+    (m, l, acc), then m = max m_i, weights exp(m_i - m)) give the plain
+    softmax and JAX's kernel, the TPU's -1e30 cases included: an empty
+    share weighs 0, and a row with nothing valid averages v over the
+    cache."""
+    B, H, KV, C, hd = 4, 8, 2, 256, 32
+    (jq, jk, jv), (q, k, v) = _inputs(shares + window, [
+        (B, H, hd), (B, KV, C, hd), (B, KV, C, hd)], "float32")
+    p = torch.tensor(pos, dtype=torch.int32)
+    bounds = share_bounds(p, C, window, shares)
+    assert bounds.shape == (shares, B, 2)
+    sizes = bounds[..., 1] - bounds[..., 0] + 1
+    assert bool((sizes >= 0).all())
+    m, l, acc = share_partials(q, k, v, p, window=window, shares=shares)
+    got = merge_partials(m, l, acc).reshape(B, H, hd)
+    _close(got, decode_attention_ref(q, k, v, p, window=window).numpy(),
+           "float32")
+    for b, pb in enumerate(pos):
+        ref = j_decode(jq[b:b + 1], jk[b:b + 1], jv[b:b + 1],
+                       jnp.asarray(pb, jnp.int32), bc=64, window=window,
+                       interpret=True)
+        _close(got[b:b + 1], ref, "float32")
+        empty = sizes[:, b] == 0
+        if bool(empty.any()):            # an empty share keeps the -1e30 state
+            assert bool((m[empty, b] == -1e30).all())
+            assert bool((l[empty, b] == 0).all())
+        if pb < 0:                       # nothing valid: the mean of v
+            mean = v[b].mean(1).repeat_interleave(H // KV, dim=0)
+            np.testing.assert_allclose(got[b].numpy(), mean.numpy(),
+                                       atol=1e-6)
+
+
 def test_gqa_equals_mha_with_repeated_kv():
     B, H, S, hd = 1, 4, 128, 32
     _, (q, k, v) = _inputs(0, [(B, H, S, hd), (B, 1, S, hd), (B, 1, S, hd)],
@@ -139,6 +179,42 @@ def test_gqa_equals_mha_with_repeated_kv():
         decode_attn(qd, kc, vc, pos).numpy(),
         decode_attn(qd, kc.repeat(1, H, 1, 1), vc.repeat(1, H, 1, 1),
                     pos).numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,hd,expected", [
+    (torch.bfloat16, 128, "tensor-core"),
+    (torch.bfloat16, 120, "tensor-core"),
+    (torch.bfloat16, 64, "tensor-core"),
+    (torch.bfloat16, 16, "tensor-core"),
+    (torch.bfloat16, 192, "cuda-core"),
+    (torch.float32, 128, "cuda-core"),
+    (torch.float32, 64, "cuda-core"),
+])
+def test_flash_dispatch_is_by_dtype_and_width(dtype, hd, expected):
+    """bf16 with hd <= 128 runs on the tensor cores; float32 (whose 1e-4
+    gate TF32 would not hold) and wider heads on the CUDA cores."""
+    assert fa.instance(dtype, hd) == expected
+
+
+def test_flash_reads_the_models_views_through_their_strides():
+    """The model's (B, S, H, hd) projections, transposed to (B, H, S, hd),
+    go to the tensor-core instance as they are: TMA takes their strides.
+    A view whose strides are not whole 16-byte steps, or whose start is
+    off the 16-byte grid, is copied instead."""
+    B, S, H, hd = 2, 48, 4, 64
+    x = torch.zeros(B, S, H, hd, dtype=torch.bfloat16)
+    view = x.transpose(1, 2)
+    assert fa._strides(view) == [H * hd, hd, S * H * hd]
+    assert fa._tma_ready(view) is view
+    one = torch.zeros(1, S, 1, hd, dtype=torch.bfloat16).transpose(1, 2)
+    assert fa._strides(one) == [hd, hd, hd]          # extent-1 dims
+    odd = torch.zeros(B, H, S, hd + 4, dtype=torch.bfloat16)[..., :hd]
+    copy = fa._tma_ready(odd)
+    assert copy is not odd and copy.is_contiguous()
+    flat = torch.zeros(B * H * S * hd + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(B, H, S, hd)
+    assert shifted.data_ptr() % 16 != 0
+    assert fa._tma_ready(shifted).data_ptr() % 16 == 0
 
 
 def test_wrappers_check_their_inputs():

@@ -353,6 +353,16 @@ DECODE_CASES = [
     (3, 4, 4, 100, 16, (99, 5, 63), 0, torch.float32),
     (2, 24, 2, 300, 120, (150, 299), 40, torch.bfloat16),
     (2, 4, 2, 64, 32, (-1, 200), 16, torch.float32),
+    # the split over the cache: B = 1 (eight blocks a kv head) and B = 16
+    # (two), ragged positions, C not a multiple of the split, shares with
+    # no valid row, a row with none at all
+    (1, 32, 8, 1500, 128, (1499,), 0, torch.bfloat16),
+    (1, 32, 8, 1500, 128, (3,), 0, torch.bfloat16),
+    (16, 32, 8, 1001, 128, (0, 1, 7, 63, 64, 65, 127, 128, 200, 333, 500,
+                            640, 777, 999, 1000, -1), 0, torch.bfloat16),
+    (16, 32, 8, 1001, 128, (0, 1, 7, 63, 64, 65, 127, 128, 200, 333, 500,
+                            640, 777, 999, 1000, 1000), 100, torch.float32),
+    (16, 8, 2, 777, 64, tuple(range(5, 777, 49)), 30, torch.bfloat16),
 ]
 
 
@@ -395,6 +405,32 @@ def test_decode_attention_kernel_alignment(cuda):
         da.decode_attention_cuda(q36, k36, k36, p)
 
 
+def test_decode_attention_kernel_replays_in_a_cuda_graph(cuda):
+    """The launch's grid depends on shapes only and the kernel reads pos on
+    the device: a captured call replays right after pos changes in
+    place."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rng = np.random.default_rng(5)
+    B, H, KV, C, hd = 4, 32, 8, 2048, 128
+    q = _normal(rng, (B, H, hd), torch.bfloat16, cuda)
+    k = _normal(rng, (B, KV, C, hd), torch.bfloat16, cuda)
+    v = _normal(rng, (B, KV, C, hd), torch.bfloat16, cuda)
+    p = torch.tensor([0, 511, 1337, 2047], dtype=torch.int32, device=cuda)
+    da.decode_attention_cuda(q, k, v, p)       # builds the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention_cuda(q, k, v, p)
+    for new in ((5, 100, 2000, 7), (2047, 0, -1, 1024)):
+        p.copy_(torch.tensor(new, dtype=torch.int32))
+        before = da.launches.count
+        graph.replay()
+        torch.cuda.synchronize()
+        assert da.launches.count == before      # a replay is not a call
+        _close(out, decode_attention_ref(q, k, v, p), torch.bfloat16)
+
+
 FLASH_CASES = [
     # (B, H, KV, Sq, Sk, hd, window, dtype): the sweep of
     # tests/test_kernels.py, llama3-8b's prefill shape, then ragged S,
@@ -410,6 +446,19 @@ FLASH_CASES = [
     (1, 8, 2, 200, 200, 120, 50, torch.bfloat16),
     (1, 3, 3, 70, 70, 256, 0, torch.float32),
     (1, 4, 1, 64, 160, 64, 0, torch.float32),
+    # the bf16 tensor-core instance: hd 64, 120 and 128, Sq off the 128-row
+    # tile, Sq != Sk both ways, G = 1, 4 and 8, windows under a tile and
+    # off its multiples, hd padded to a multiple of 8, hd > 128 (CUDA cores)
+    (1, 8, 8, 200, 200, 64, 0, torch.bfloat16),
+    (2, 16, 4, 1000, 1000, 128, 0, torch.bfloat16),
+    (1, 8, 1, 1000, 1000, 120, 300, torch.bfloat16),
+    (1, 4, 4, 333, 333, 128, 50, torch.bfloat16),
+    (1, 8, 2, 1000, 1000, 64, 200, torch.bfloat16),
+    (1, 8, 2, 200, 520, 64, 0, torch.bfloat16),
+    (1, 8, 1, 520, 200, 128, 0, torch.bfloat16),
+    (2, 4, 2, 24, 24, 16, 0, torch.bfloat16),
+    (1, 4, 2, 96, 96, 36, 0, torch.bfloat16),
+    (1, 4, 2, 130, 130, 192, 0, torch.bfloat16),
 ]
 
 
@@ -431,6 +480,33 @@ def test_flash_attention_kernel_equals_plain(cuda, B, H, KV, Sq, Sk, hd,
     if window == 0 and Sq == Sk:
         _close(fa.flash_attention_cuda(q, k, v, causal=False),
                attention_ref(q, k, v, causal=False), dtype)
+
+
+def test_flash_attention_tensor_core_instance_writes_through_strides(cuda):
+    """The model's call: q, k, v as (B, S, H, hd) views transposed to
+    (B, H, S, hd).  The tensor-core instance reads them in place (no copy:
+    the call's device memory grows by less than the output and a copy of
+    q) and writes an output with q's strides."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(11)
+    B, H, KV, S, hd = 2, 8, 2, 300, 128
+    q = _normal(rng, (B, S, H, hd), torch.bfloat16, cuda).transpose(1, 2)
+    k = _normal(rng, (B, S, KV, hd), torch.bfloat16, cuda).transpose(1, 2)
+    v = _normal(rng, (B, S, KV, hd), torch.bfloat16, cuda).transpose(1, 2)
+    assert fa.instance(q.dtype, hd) == "tensor-core"
+    assert all(fa._tma_ready(x) is x for x in (q, k, v))
+    fa.flash_attention_cuda(q, k, v)           # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = fa.flash_attention_cuda(q, k, v, window=100)
+    torch.cuda.synchronize()
+    out_bytes = got.numel() * got.element_size()
+    assert torch.cuda.max_memory_allocated() - base < 2 * out_bytes
+    assert got.stride() == q.stride()
+    assert got.transpose(1, 2).is_contiguous()
+    _close(got, attention_ref(q, k, v, window=100), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
