@@ -43,8 +43,9 @@ port's paths through the entry points a user calls:
     the plain chunked form, in float32 (the gate that decides) and in
     bf16, on three seeds each; then the same engine and 8-request traffic
     as the serve path, and one ``prefill`` at B = 4, S = 8192 (cut from
-    32 x 32768): ssd_scan on every prefill layer, no kernel on decode.
-    A profile of one decode step follows.
+    32 x 32768): ssd_scan's three stage kernels on every prefill layer,
+    no kernel on decode.  Profiles of the prefill (by kernel, then by
+    operator and call site) and of one decode step follow.
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; it must launch its own kernel and no other.  The
@@ -73,11 +74,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 #: Published H100 SXM peaks (NVIDIA data sheet) used for the bounds: HBM
 #: bytes per second, float32 operations per second outside the tensor
-#: cores (the scheduler kernels' compares and selects), and dense bf16
-#: tensor-core operations per second (the attention products' type).
+#: cores (the scheduler kernels' compares and selects), and dense bf16 and
+#: TF32 tensor-core operations per second (the attention products' type;
+#: ssd_scan's split-TF32 products, three TF32 products for each float32
+#: one).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+TF32_TC_OPS_PER_S = 495e12
 
 #: Members of the full-width streams the VQS-family and bfjs_mr kernels
 #: are held against their plain versions on (members are independent, so
@@ -588,14 +592,62 @@ def profile_prefill(cfg, params, dev, tokens, tag: str = "mamba") -> None:
     B, S = tokens.shape
     print(f"{tag} profile: prefill B={B} S={S}")
     device_split(tag, prof, wall_us, 1, "prefill")
+    with profiled(stack=True) as prof:
+        M.prefill(params, cfg, tokens=tokens)
+        torch.cuda.synchronize()
+    call_site_split(tag, prof, "prefill")
 
 
-def profiled():
-    """A ``torch.profiler`` context recording host and device activity."""
+def profiled(stack: bool = False):
+    """A ``torch.profiler`` context recording host and device activity
+    (and, with ``stack``, the Python stack of each operator: the verbose
+    experimental config is what fills ``stack``)."""
     import torch
+    from torch._C._profiler import _ExperimentalConfig
     return torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
+        torch.profiler.ProfilerActivity.CUDA], with_stack=stack,
+        experimental_config=_ExperimentalConfig(verbose=stack))
+
+
+def call_site(stack, frames: int = 2) -> str:
+    """The innermost ``frames`` frames of a profiler stack inside the port
+    (``path(line): function`` from ``repro_torch/`` on, innermost first)."""
+    names = [f.split("repro_torch/", 1)[-1] for f in stack
+             if "repro_torch/" in f]
+    return " < ".join(names[:frames]) or "(outside the port)"
+
+
+def call_site_split(tag: str, prof, unit: str, top: int = 14,
+                    depth: int = 8) -> None:
+    """The device time of one ``unit`` under ``prof`` (recorded with
+    stacks) by operator and call site in the port: each operator's self
+    device time (the kernels it launched itself), grouped by
+    ``key_averages(group_by_stack_n=depth)`` and summed by the operator's
+    name and :func:`call_site`.  Kernels launched through ctypes have no
+    operator and are counted apart."""
+    import torch
+    sites: dict[str, float] = {}
+    for e in prof.key_averages(group_by_stack_n=depth):
+        if e.device_type != torch.autograd.DeviceType.CPU or \
+                e.self_device_time_total <= 0:
+            continue
+        key = f"{e.key} at {call_site(e.stack)}"
+        sites[key] = sites.get(key, 0.0) + e.self_device_time_total
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy == 0:
+        print(f"{tag} call sites: the profiler recorded no device time: "
+              "device time not measured")
+        return
+    named = sum(sites.values())
+    print(f"{tag} call sites: {busy / 1e3:.2f} ms of device time per {unit}, "
+          f"{named / 1e3:.2f} ms under PyTorch operators, "
+          f"{(busy - named) / 1e3:.2f} ms in kernels launched without one "
+          f"(ctypes)")
+    for key, us in sorted(sites.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"{tag} call sites:  {us / 1e3:8.3f} ms {us / busy:6.1%}  "
+              f"{key[:150]}")
 
 
 def device_split(tag: str, prof, wall_us: float, reps: int,
@@ -780,15 +832,50 @@ MAMBA_GATE_TOL = {
 MAMBA_GATE_SEEDS = 3
 
 
-def ssd_work(B, H, G, nc, Lc, hd, N, itemsize) -> tuple[float, float]:
-    """Bytes and operations of one ssd_scan call.  Bytes: xdt and a read
-    once, Bm and Cm (G groups) read once, y written once.  Operations per
-    chunk and head, over the causal pairs j <= i only (as flash_phase
-    counts them): C B^T and its product with x, Lc (Lc + 1) (N + hd), then
-    C S^T and the state update, 4 Lc hd N."""
-    nbytes = itemsize * nc * Lc * B * (H * (2 * hd + 1) + G * 2 * N)
-    ops = B * H * nc * (Lc * (Lc + 1) * (N + hd) + 4 * Lc * hd * N)
-    return nbytes, ops
+def ssd_work(B, H, G, nc, Lc, hd, N, bc_size=4) -> tuple[float, float,
+                                                          float]:
+    """Bytes and operations of one ssd_scan call, x, a and y float32 and B
+    and C of ``bc_size`` bytes.  Bytes: xdt and a read once, Bm and Cm (G
+    groups) read once, y written once.  Operations per chunk and head,
+    over the causal pairs j <= i only (as flash_phase counts them): C B^T
+    Lc (Lc + 1) N, P x Lc (Lc + 1) hd, C S^T and the state update 2 Lc hd
+    N each.  Also the TF32 tensor-core operations the kernels issue for
+    them: three products each in split TF32, two for C S^T and one for
+    C B^T where B and C are bf16 (exact in TF32, no lo terms)."""
+    nbytes = nc * Lc * B * (4 * H * (2 * hd + 1) + bc_size * G * 2 * N)
+    scores = B * H * nc * Lc * (Lc + 1) * N
+    px = B * H * nc * Lc * (Lc + 1) * hd
+    cst = update = B * H * nc * 2 * Lc * hd * N
+    ops = scores + px + cst + update
+    tf32 = 3 * ops if bc_size == 4 else scores + 3 * px + 2 * cst + 3 * update
+    return nbytes, ops, tf32
+
+
+def ssd_state_bytes(B, H, nc, hd, N) -> float:
+    """Bytes the stages move through device memory beside the call's own:
+    the float32 chunk states written (stage 1), read and written over
+    (stage 2) and read (stage 3)."""
+    return 4 * 4.0 * B * H * nc * hd * N
+
+
+def tensor_core_check(name: str, kernels: tuple[str, ...]) -> dict:
+    """The tensor-core instructions (SASS HMMA / HGMMA) in each instance of
+    the built library's kernel functions named in ``kernels``; raises if
+    an instance has none.  Returns, per kernel, the instances and the
+    least count among them, and the counts of the instances with hd = 64
+    and N = 128 (the ones that serve mamba2-130m), by type of B and C."""
+    from repro_torch.kernels import build
+    counts = build.tensor_core_counts(name)
+    found = {}
+    for k in kernels:
+        inst = {f: n for f, n in counts.items() if k + "I" in f}
+        if not inst or not all(inst.values()):
+            raise AssertionError(f"{name}: an instance of {k} has no "
+                                 "tensor-core instruction")
+        found[k] = dict(instances=len(inst), least=min(inst.values()), **{
+            ("bf16" if "bfloat16" in f else "float32"): n
+            for f, n in inst.items() if "Li64ELi128E" in f})
+    return found
 
 
 def ssd_check(what: str, got, ref) -> tuple[float, float]:
@@ -805,58 +892,139 @@ def ssd_check(what: str, got, ref) -> tuple[float, float]:
 
 
 def ssd_phase(dev, seed: int) -> dict:
-    """ssd_scan kernel against its plain version at the Mamba2 path's
-    prefill shape (B = 4, S = 8192 in 32 chunks of 256, mamba2-130m's 24
-    heads of 64 reading one group of N = 128, float32 as ``mamba_apply``
-    gives it), at the shapes of tests/test_kernels.py (per-head B and C)
-    and with two groups of two heads; timings at the prefill shape."""
+    """ssd_scan against its plain version (the recurrence) at the Mamba2
+    path's prefill shape (B = 4, S = 8192 in 32 chunks of 256,
+    mamba2-130m's 24 heads of 64 reading one group of N = 128) twice: as
+    ``mamba_apply`` gives it in bf16, float32 x and a with bf16 B and C,
+    each a view of the model's layout (the instance the path runs), and
+    all float32, contiguous; then at the shapes of tests/test_kernels.py
+    (per-head B and C) and with two groups of two heads.  At the prefill
+    shape also each stage kernel against its plain version, the timings
+    of the call and of each stage, and the bounds.  Returns the kernels
+    line's row: the path's instance, the float32 one under ``float32``."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    tc = tensor_core_check("ssd_scan", ("chunk_states_kernel",
+                                        "chunk_scan_kernel"))
+    print(f"ssd_scan: tensor-core instructions (SASS HMMA) in the built "
+          f"library, per kernel: instances, the least in one, and the "
+          f"hd = 64, N = 128 instances by type of B and C: {tc}")
     gen = torch.Generator(device=dev).manual_seed(seed)
 
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
     def inputs(B, H, G, nc, Lc, hd, N, dtype):
-        def normal(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
         return ((normal(B, H, nc, Lc, hd) * 0.5).to(dtype),
                 (normal(B, G, nc, Lc, N) * 0.5).to(dtype),
                 (normal(B, G, nc, Lc, N) * 0.5).to(dtype),
                 (-F.softplus(normal(B, H, nc, Lc))).to(dtype))
 
-    row = {}
-    for B, H, G, nc, Lc, hd, N, dtype in (
-            (4, 24, 1, 32, 256, 64, 128, torch.float32),
-            (2, 3, 3, 2, 32, 16, 8, torch.float32),
-            (2, 3, 3, 4, 64, 32, 16, torch.float32),
-            (2, 3, 3, 4, 64, 64, 32, torch.bfloat16),
-            (1, 1, 1, 8, 16, 8, 4, torch.float32),
-            (2, 4, 2, 3, 16, 16, 16, torch.float32)):
-        args = inputs(B, H, G, nc, Lc, hd, N, dtype)
+    def model_inputs(B, H, G, nc, Lc, hd, N):
+        """As mamba_apply passes them in bf16: x (B, S, H, hd) and a
+        (B, S, H) float32, B and C bf16 slices of the conv output (B, S,
+        H hd + 2 G N), each viewed as (B, H or G, nc, Lc, *)."""
+        S, din = nc * Lc, H * hd
+        xbc = (normal(B, S, din + 2 * G * N) * 0.5).to(torch.bfloat16)
+
+        def groups(t):
+            return t.reshape(B, nc, Lc, G, N).permute(0, 3, 1, 2, 4)
+        return ((normal(B, S, H, hd) * 0.5).reshape(B, nc, Lc, H, hd)
+                .permute(0, 3, 1, 2, 4),
+                groups(xbc[..., din:din + G * N]),
+                groups(xbc[..., din + G * N:]),
+                (-F.softplus(normal(B, S, H))).reshape(B, nc, Lc, H)
+                .permute(0, 3, 1, 2))
+
+    prefill = (4, 24, 1, 32, 256, 64, 128)
+    timed = {}
+    for shape, dtype, tag in (
+            (prefill, None, "f32 x, bf16 B C, model layout"),
+            (prefill, torch.float32, "f32"),
+            ((2, 3, 3, 2, 32, 16, 8), torch.float32, "f32"),
+            ((2, 3, 3, 4, 64, 32, 16), torch.float32, "f32"),
+            ((2, 3, 3, 4, 64, 64, 32), torch.bfloat16, "bf16"),
+            ((1, 1, 1, 8, 16, 8, 4), torch.float32, "f32"),
+            ((2, 4, 2, 3, 16, 16, 16), torch.float32, "f32")):
+        B, H, G, nc, Lc, hd, N = shape
+        args = model_inputs(*shape) if dtype is None else \
+            inputs(*shape, dtype)
         got = sk.ssd_scan_cuda(*args)
         torch.cuda.synchronize()
         ref = ssd_ref(*args)
-        tag = "bf16" if dtype == torch.bfloat16 else "f32"
         what = (f"ssd_scan B={B} H={H} G={G} nc={nc} Lc={Lc} hd={hd} N={N} "
                 f"{tag}")
         err, rel = ssd_check(what, got, ref)
-        atol, rtol = SSD_TOL[str(dtype).removeprefix("torch.")]
+        atol, rtol = SSD_TOL[str(got.dtype).removeprefix("torch.")]
         line = (f"{what}: max abs err {err:.3g}, max |diff| / max |y| "
                 f"{rel:.3g} vs plain (atol {atol:g}, rtol {rtol:g})")
-        if not row:
+        if shape == prefill:
             ms = time_ms(lambda: sk.ssd_scan_cuda(*args), 10)
             plain_ms = time_ms(lambda: ssd_ref(*args), 1)
-            nbytes, ops = ssd_work(B, H, G, nc, Lc, hd, N, 4)
-            b_ms, b_by = bound(nbytes, ops)
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-                     f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e9:.3f} GB, "
-                     f"{ops / 1e9:.1f} GFLOP at {FP32_OPS_PER_S:.3g}/s)")
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        print(line)
+            bc_size = args[1].element_size()
+            nbytes, ops, tf32 = ssd_work(*shape, bc_size)
+            b_ms, b_by = bound(nbytes, tf32, TF32_TC_OPS_PER_S)
+            fp32_ms, _ = bound(nbytes, ops)
+            state_gb = ssd_state_bytes(B, H, nc, hd, N) / 1e9
+            with_states = (nbytes / 1e9 + state_gb) * 1e12 / HBM_BYTES_PER_S
+            line += (f"; call {ms:.4f} ms, plain {plain_ms:.1f} ms; bound "
+                     f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e9:.3f} GB at "
+                     f"{HBM_BYTES_PER_S:.3g} B/s = "
+                     f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+                     f"{state_gb:.3f} GB more of chunk states = "
+                     f"{with_states:.4f} ms; {tf32 / 1e9:.1f} GFLOP of TF32 "
+                     f"products for {ops / 1e9:.1f} GFLOP at "
+                     f"{TF32_TC_OPS_PER_S:.3g}/s = "
+                     f"{tf32 / TF32_TC_OPS_PER_S * 1e3:.4f} ms); the "
+                     f"float32 CUDA-core bound {fp32_ms:.4f} ms "
+                     f"({ops / 1e9:.1f} GFLOP at {FP32_OPS_PER_S:.3g}/s)")
+            print(line)
+            stages = ssd_stage_check(args, sk, sref)
+            timed[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                              bound_fp32_ms=fp32_ms, stage_ms=stages)
+        else:
+            print(line)
         del args, got, ref
     torch.cuda.empty_cache()
-    return row
+    row, f32 = timed.values()
+    return dict(row, float32=f32)
+
+
+def ssd_stage_check(args, sk, sref) -> dict[str, float]:
+    """Each ssd_scan stage kernel against its plain version on the same
+    inputs (within ``SSD_TOL``; the state pass, elementwise, within 1e-5
+    of max |S|), and its time (CUDA events, mean of 10 eager calls)."""
+    import torch
+    x, b, c, a = args
+    states, totals = sk.chunk_states_cuda(x, b, a)
+    ref_states, ref_totals = sref.chunk_states_ref(x, b, a)
+    errs = {"chunk_states": ssd_check("ssd_scan chunk_states", states,
+                                      ref_states)[0]}
+    want = sref.state_pass_ref(states, totals)
+    starts = sk.state_pass_cuda(states.clone(), totals)
+    diff = float((starts - want).abs().max())
+    if not diff <= 1e-5 * float(want.abs().max()):
+        raise AssertionError(f"ssd_scan state_pass: max abs err {diff:.3g} "
+                             "against the plain version")
+    errs["state_pass"] = diff
+    y = sk.chunk_scan_cuda(x, b, c, a, want)
+    errs["chunk_scan"] = ssd_check("ssd_scan chunk_scan", y,
+                                   sref.chunk_scan_ref(x, b, c, a, want))[0]
+    torch.cuda.synchronize()
+    scratch = states.clone()
+    ms = {"chunk_states": time_ms(lambda: sk.chunk_states_cuda(x, b, a), 10),
+          "state_pass": time_ms(lambda: sk.state_pass_cuda(scratch, totals),
+                                10),
+          "chunk_scan": time_ms(lambda: sk.chunk_scan_cuda(x, b, c, a, want,
+                                                           out=y), 10)}
+    print("ssd_scan stages: " + "; ".join(
+        f"{k} {ms[k]:.4f} ms, max abs err {errs[k]:.3g} vs plain"
+        for k in ms))
+    return ms
 
 
 def mamba_gate(cfg, dev, seed: int, P: int = 512) -> None:
@@ -912,6 +1080,7 @@ def mamba_path(dev, seed: int, counters, reset_counters) -> dict:
     S = 8192; returns the kernels' launches in the path's run."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.models import model as M
 
     cfg = get_config("mamba2-130m")
@@ -951,11 +1120,13 @@ def mamba_path(dev, seed: int, counters, reset_counters) -> dict:
     ticks = len(engine.stats["queue_len"])
     calls = len(decode_s)
     check_served("mamba", cfg, engine, done)
-    if launches["ssd_scan"] != cfg.num_layers or any(
+    expected = sk.LAUNCHES_PER_CALL * cfg.num_layers
+    if launches["ssd_scan"] != expected or any(
             c for n, c in launches.items() if n != "ssd_scan"):
         raise AssertionError(f"mamba: launches {launches}, expected "
-                             f"{cfg.num_layers} ssd_scan for the prefill, "
-                             f"none per decode step, no other kernel")
+                             f"{expected} ssd_scan ({sk.LAUNCHES_PER_CALL} "
+                             f"a layer) for the prefill, none per decode "
+                             f"step, no other kernel")
     if out.shape != (4, cfg.vocab_size) or not bool(torch.isfinite(out)
                                                    .all()):
         raise AssertionError("mamba: prefill logits bad shape or values")
@@ -974,7 +1145,8 @@ def mamba_path(dev, seed: int, counters, reset_counters) -> dict:
           f"clock, synchronised); prefill B=4 S=8192 (cut from 32 x 32768) "
           f"{prefill_wall_ms:.1f} ms in the path, {prefill_ms:.1f} ms (CUDA "
           f"events, mean of 3); device memory peak {peak_gb:.2f} GB; "
-          f"launches ssd_scan {launches['ssd_scan']} (0 per decode step)")
+          f"launches ssd_scan {launches['ssd_scan']} ({sk.LAUNCHES_PER_CALL} "
+          f"a layer, 0 per decode step)")
     del engine
     profile_prefill(cfg, params, dev, long_prompt)
     profile_decode_step(cfg, params, dev, tag="mamba")

@@ -142,6 +142,25 @@ def ptxas_report() -> dict[str, str]:
             for n, log in logs.items()}
 
 
+def tensor_core_counts(name: str) -> dict[str, int]:
+    """Tensor-core instructions (SASS ``HMMA`` and ``HGMMA``) in each kernel
+    function of the built library of ``csrc/<name>.cu``, by mangled name
+    (functions with none are listed with 0)."""
+    path = build_all([name])[name]
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    counts: dict[str, int] = {}
+    func = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :", 1)[1].strip()
+            counts.setdefault(func, 0)
+        elif func is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[func] += 1
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Build the CUDA kernels.")
     ap.add_argument("--ptxas", action="store_true",

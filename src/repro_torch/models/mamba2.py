@@ -2,14 +2,15 @@
 ``repro.models.mamba2``).
 
 Prefill runs the chunked SSD form: a quadratic form inside each chunk plus
-the inter-chunk state recurrence.  ``mamba_apply`` moves its inputs from
-the model's ``(B, nc, Lc, H, P)`` layout to the kernel's ``(B, H, nc, Lc,
-P)`` (B and C stay per group, ``(B, G, nc, Lc, N)``) and calls the
-``ssd_scan`` kernel (``kernels/ssd_scan``), from a zero state, dropping
-the final state, which is all the JAX ``mamba_apply`` needs.  ``use_kernels=False`` runs :func:`ssd_chunk_scan`, the JAX
-package's jnp form, instead.  Decode is the O(1)-state recurrence, plain
-PyTorch (the JAX package has no kernel for it), and updates the cache in
-place.  Rounding points are the JAX package's: projections and the causal
+the inter-chunk state recurrence.  ``mamba_apply`` hands the ``ssd_scan``
+kernels (``kernels/ssd_scan``) views of the model's ``(B, nc, Lc, H, P)``
+layout in their ``(B, H, nc, Lc, P)`` order (B and C per group, ``(B, G,
+nc, Lc, N)``, in ``cfg.dtype``), which they read through the strides; they
+run from a zero state and drop the final state, which is all the JAX
+``mamba_apply`` needs.  ``use_kernels=False`` runs :func:`ssd_chunk_scan`,
+the JAX package's jnp form, instead.  Decode is the O(1)-state recurrence,
+plain PyTorch (the JAX package has no kernel for it), and updates the cache
+in place.  Rounding points are the JAX package's: projections and the causal
 conv in ``cfg.dtype``, the SSM in float32.
 """
 from __future__ import annotations
@@ -156,10 +157,12 @@ def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     xdt = xh * dt[..., None]
     hpg = nh // G
     if use_kernels:
-        # the kernel's layout: (B, H, nc, Lc, *) for x and a, (B, G, nc,
-        # Lc, N) for B and C, which the kernel reads by group
+        # views of the model's layout as the kernel's (B, H, nc, Lc, *) for
+        # x and a and (B, G, nc, Lc, N) for B and C, which it reads by
+        # group and in their own dtype: the kernel reads through the
+        # strides, and writes y in (B, nc, Lc, H, P), so nothing is copied
         def groups(t):
-            return t.reshape(B, nc, Lc, G, N).permute(0, 3, 1, 2, 4).float()
+            return t.reshape(B, nc, Lc, G, N).permute(0, 3, 1, 2, 4)
         y = ssd(xdt.reshape(B, nc, Lc, nh, P).permute(0, 3, 1, 2, 4),
                 groups(Bc), groups(Cc),
                 a.reshape(B, nc, Lc, nh).permute(0, 3, 1, 2))

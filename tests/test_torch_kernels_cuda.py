@@ -559,6 +559,9 @@ SSD_CASES = [
     (2, 2, 2, 3, 100, 40, 50, torch.float32),
     (1, 2, 1, 4, 7, 64, 128, torch.float32),
     (1, 2, 2, 1, 1024, 16, 16, torch.float32),
+    # the Mamba2 path's prefill shape (B = 4, S = 8192), as chip_smoke runs it
+    (4, 24, 1, 32, 256, 64, 128, torch.float32),
+    (4, 24, 1, 32, 256, 64, 128, torch.bfloat16),   # mamba2-130m's prefill
 ]
 
 
@@ -583,7 +586,7 @@ def test_ssd_scan_kernel_equals_plain(cuda, B, H, G, nc, Lc, hd, N, dtype):
     before = sk.launches.count
     got = sk.ssd_scan_cuda(*args)
     torch.cuda.synchronize()
-    assert sk.launches.count == before + 1
+    assert sk.launches.count == before + sk.LAUNCHES_PER_CALL
     assert got.dtype == dtype and got.shape == args[0].shape
     atol = 5e-2 if dtype == torch.bfloat16 else 1e-4
     np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -610,6 +613,86 @@ def test_ssd_scan_kernel_takes_strided_inputs_and_refuses_past_its_widths(
         sk.ssd_scan_cuda(x, b, c, a)
 
 
+SSD_STAGE_CASES = [
+    # (B, H, G, nc, Lc, hd, N, B and C dtype): the stage kernels take
+    # float32 x and rows of whole 16-byte units (ssd_scan_cuda pads them)
+    (2, 3, 3, 2, 32, 16, 8, torch.float32),
+    (2, 4, 2, 3, 100, 40, 48, torch.float32),
+    (1, 6, 2, 2, 256, 64, 128, torch.bfloat16),
+    (1, 2, 1, 4, 7, 64, 128, torch.float32),
+    (1, 2, 2, 1, 1024, 16, 16, torch.float32),
+    (4, 24, 1, 32, 256, 64, 128, torch.float32),
+    (4, 24, 1, 32, 256, 64, 128, torch.bfloat16),   # mamba2-130m's prefill
+]
+
+
+@pytest.mark.parametrize("B,H,G,nc,Lc,hd,N,bdtype", SSD_STAGE_CASES)
+def test_ssd_stage_kernels_equal_plain(cuda, B, H, G, nc, Lc, hd, N, bdtype):
+    """Each stage kernel against its plain version on the same inputs:
+    chunk states and totals, the state pass (in place) on the kernel's
+    states, the chunk scan from the plain starts; one launch each.  The
+    tolerances of tests/test_kernels.py's float32 case (atol 1e-4, rtol
+    1e-2); the state pass, elementwise, within 1e-5 of max |S|."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan import ref
+    x, b, c, a = _ssd_inputs(np.random.default_rng(Lc + N), B, H, nc, Lc,
+                             hd, N, torch.float32, cuda, G)
+    b, c = b.to(bdtype), c.to(bdtype)
+
+    def close(got, want, atol=1e-4, rtol=1e-2):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=atol, rtol=rtol)
+    before = sk.launches.count
+    states, totals = sk.chunk_states_cuda(x, b, a)
+    torch.cuda.synchronize()
+    ref_states, ref_totals = ref.chunk_states_ref(x, b, a)
+    close(states, ref_states)
+    close(totals, ref_totals, 1e-5, 1e-5)
+    want = ref.state_pass_ref(states, totals)
+    starts = sk.state_pass_cuda(states, totals)
+    torch.cuda.synchronize()
+    assert starts.data_ptr() == states.data_ptr()
+    close(starts, want, 1e-5 * float(want.abs().max()), 1e-5)
+    ref_starts = ref.state_pass_ref(ref_states, ref_totals)
+    y = sk.chunk_scan_cuda(x, b, c, a, ref_starts)
+    torch.cuda.synchronize()
+    assert sk.launches.count == before + 3
+    assert y.shape == x.shape and y.dtype == torch.float32
+    assert y.permute(0, 2, 3, 1, 4).is_contiguous()   # the model's layout
+    close(y, ref.chunk_scan_ref(x, b, c, a, ref_starts))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_reads_the_model_layout(cuda, dtype):
+    """The call as mamba_apply makes it: x and a float32 views of (B, S, H,
+    *), B and C views of the conv output in ``dtype``; equal to the
+    recurrence, y stored as (B, nc, Lc, H, P)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    B, S, H, P, G, N, Lc = 2, 512, 4, 64, 1, 128, 256
+    nc, din = S // Lc, H * P
+    rng = np.random.default_rng(7)
+    xbc = (_normal(rng, (B, S, din + 2 * G * N), torch.float32, cuda)
+           * 0.5).to(dtype)
+    xdt = _normal(rng, (B, S, H, P), torch.float32, cuda) * 0.5
+    a = -torch.nn.functional.softplus(_normal(rng, (B, S, H), torch.float32,
+                                              cuda))
+    Bc, Cc = xbc[..., din:din + G * N], xbc[..., din + G * N:]
+
+    def groups(t):
+        return t.reshape(B, nc, Lc, G, N).permute(0, 3, 1, 2, 4)
+    args = (xdt.reshape(B, nc, Lc, H, P).permute(0, 3, 1, 2, 4), groups(Bc),
+            groups(Cc), a.reshape(B, nc, Lc, H).permute(0, 3, 1, 2))
+    assert all(sk.bulk_ready(t) for t in args[:3])
+    y = sk.ssd_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32
+    assert y.permute(0, 2, 3, 1, 4).is_contiguous()
+    np.testing.assert_allclose(y.cpu().numpy(),
+                               ssd_ref(*args).cpu().numpy(), atol=1e-4,
+                               rtol=1e-2)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba_model_on_card_kernel_equals_plain(cuda, dtype):
     """mamba2-130m at full width and depth on the card: prefill through the
@@ -626,14 +709,14 @@ def test_mamba_model_on_card_kernel_equals_plain(cuda, dtype):
                          generator=torch.Generator(cuda).manual_seed(1))
     sk.launches.reset()
     full, _ = M.forward(params, cfg, tokens=toks)
-    assert sk.launches.count == cfg.num_layers
+    assert sk.launches.count == sk.LAUNCHES_PER_CALL * cfg.num_layers
     plain, _ = M.forward(params, cfg, tokens=toks, use_kernels=False)
     caches = M.init_cache(cfg, 2, P, device=cuda)
     steps = []
     for i in range(P):
         out, caches = M.decode_step(params, cfg, toks[:, i:i + 1], i, caches)
         steps.append(out[:, 0])
-    assert sk.launches.count == cfg.num_layers
+    assert sk.launches.count == sk.LAUNCHES_PER_CALL * cfg.num_layers
     rec = torch.stack(steps, 1)
     # chip_smoke.MAMBA_GATE_TOL's limits (readings in PERF.md)
     tol_plain, tol_rec = (1e-4, 1e-4) if dtype == "float32" else (3.5e-2,

@@ -1,6 +1,7 @@
-"""The port's SSD chunk-scan plain version and entry point on the CPU
-against the JAX package's Pallas kernel (interpret mode), its reference and
-its chunked jnp form.
+"""The port's SSD chunk-scan plain versions (the recurrence and the three
+stages of the kernel) and entry points on the CPU against the JAX
+package's Pallas kernel (interpret mode), its reference and its chunked
+jnp form.
 
 On CPU tensors the wrapper runs the plain version, so these tests pin the
 arithmetic that ``tests/test_torch_kernels_cuda.py`` then holds the CUDA
@@ -21,6 +22,7 @@ from repro.models.mamba2 import \
     ssd_chunk_scan as j_chunk_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as sk  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as sref  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_ref  # noqa: E402
 from repro_torch.models.mamba2 import _heads, ssd_chunk_scan  # noqa: E402
 
@@ -171,3 +173,164 @@ def test_wrapper_checks_its_inputs():
         with pytest.raises(NotImplementedError, match="ssd_scan kernel"):
             sk.ssd_scan_cuda(xm, bm, bm, torch.zeros(shape_x[:4],
                                                      device="meta"))
+
+
+def _group_inputs(seed, B, H, G, nc, Lc, hd, N, dtype):
+    """_inputs with B and C per group for the port, per head (repeated,
+    as ``jnp.repeat`` broadcasts them) for the JAX kernel."""
+    jin, tin = _inputs(seed, B, H, nc, Lc, hd, N, dtype)
+    tin[1], tin[2] = (t[:, ::H // G].contiguous() for t in tin[1:3])
+    jin[1], jin[2] = (jnp.repeat(jnp.asarray(t.float().numpy()).astype(
+        DTYPES[dtype][0]), H // G, axis=1) for t in tin[1:3])
+    return jin, tin
+
+
+@pytest.mark.parametrize("H,G,nc,Lc,hd,N,dtype", [
+    (3, 3, 2, 32, 16, 8, "float32"),
+    (3, 3, 4, 64, 32, 16, "float32"),
+    (3, 3, 4, 64, 64, 32, "bfloat16"),
+    (3, 3, 3, 16, 16, 16, "float32"),
+    (4, 2, 3, 16, 16, 16, "float32"),      # two groups of two heads
+    (4, 1, 2, 100, 16, 8, "float32"),      # a chunk of one and a half tiles
+])
+def test_ssd_stages_match_jax_kernel_and_reference(H, G, nc, Lc, hd, N,
+                                                   dtype):
+    """The plain versions of the kernel's three stages composed (chunk
+    states, state pass, chunk scan) equal the JAX kernel and the JAX
+    recurrence."""
+    B = 2
+    jin, tin = _group_inputs(nc * Lc + G, B, H, G, nc, Lc, hd, N, dtype)
+    kernel = j_ssd(*jin, interpret=True)
+    ref = j_ssd_ref(*jin)
+    atol = 5e-2 if dtype == "bfloat16" else 1e-4
+    got = sref.ssd_stages_ref(*tin)
+    assert got.dtype == tin[0].dtype and got.shape == tin[0].shape
+    _close(got, kernel, atol)
+    _close(got, ref, atol)
+
+
+def test_state_pass_matches_the_final_state_of_chunk_scan():
+    """The state each chunk starts from (chunk states, then the state
+    pass) equals the final state of the port's ``ssd_chunk_scan`` over the
+    chunks before it, from a zero state; and a chunk's state alone equals
+    that form's final state over that chunk."""
+    B, H, G, nc, Lc, P, N = 2, 4, 2, 4, 24, 8, 6
+    _, tin = _group_inputs(21, B, H, G, nc, Lc, P, N, "float32")
+    x, Bg, Cg, a = tin
+    states, totals = sref.chunk_states_ref(x, Bg, a)
+    starts = sref.state_pass_ref(states, totals)
+    assert not starts[:, :, 0].any()
+
+    def model_layout(t):
+        t = sref._heads(t, H // G) if t.shape[1] == G else t
+        return t.permute(0, 2, 3, 1, 4) if t.ndim == 5 else \
+            t.permute(0, 2, 3, 1)
+    xm, Bm, Cm, am = (model_layout(t) for t in tin)
+    zero = torch.zeros(B, H, P, N)
+    for c in range(1, nc):
+        _, final = ssd_chunk_scan(xm[:, :c], Bm[:, :c], Cm[:, :c], am[:, :c],
+                                  zero)
+        _close(starts[:, :, c], final, 1e-5, 1e-4)
+        _, alone = ssd_chunk_scan(xm[:, c:c + 1], Bm[:, c:c + 1],
+                                  Cm[:, c:c + 1], am[:, c:c + 1], zero)
+        _close(states[:, :, c], alone, 1e-5, 1e-4)
+    np.testing.assert_allclose(totals.numpy(), a.sum(-1).numpy(), atol=1e-5,
+                               rtol=1e-6)
+
+
+def test_split_tf32_product_keeps_float32_accuracy():
+    """The kernel's split: hi and lo are TF32 values (low 13 mantissa bits
+    clear) and hi + lo is v to 2^-20; hi.hi + hi.lo + lo.hi of float32
+    operands stays within 1e-6 of max |product| from the float64 product,
+    while the single TF32 product hi.hi does not (about 1e-3)."""
+    rng = np.random.default_rng(3)
+    A = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32))
+    Bt = torch.from_numpy(rng.standard_normal((128, 64)).astype(np.float32))
+    (Ah, Al), (Bh, Bl) = sref.split_tf32(A), sref.split_tf32(Bt)
+    for part in (Ah, Al, Bh, Bl):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert float(((A - Ah - Al).abs() / A.abs()).max()) < 2.0 ** -20
+    exact = A.double() @ Bt.double()
+    scale = float(exact.abs().max())
+    split = (Al @ Bh + Ah @ Bl) + Ah @ Bh
+    single = Ah @ Bh
+    assert float((split.double() - exact).abs().max()) <= 1e-6 * scale
+    assert float((single.double() - exact).abs().max()) > 1e-4 * scale
+
+
+def test_operands_are_read_in_the_model_layout():
+    """The views mamba_apply passes (x and a of (B, S, H, *), B and C of
+    the conv output, bf16 or float32) go to the kernels as they are;
+    ragged widths are zero-padded to 16-byte rows and misaligned strides
+    copied.  bf16 B and C with float32 x are a valid call."""
+    B, S, H, P, G, N, Lc = 2, 64, 4, 8, 1, 16, 32
+    nc, din = S // Lc, H * P
+    rng = np.random.default_rng(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        xbc = torch.from_numpy(rng.standard_normal(
+            (B, S, din + 2 * G * N)).astype(np.float32)).to(dtype)
+        x = torch.from_numpy(rng.standard_normal((B, S, H, P))
+                             .astype(np.float32))
+        a = -torch.nn.functional.softplus(torch.from_numpy(
+            rng.standard_normal((B, S, H)).astype(np.float32)))
+
+        def groups(t):
+            return t.reshape(B, nc, Lc, G, N).permute(0, 3, 1, 2, 4)
+        args = (x.reshape(B, nc, Lc, H, P).permute(0, 3, 1, 2, 4),
+                groups(xbc[..., din:din + G * N]),
+                groups(xbc[..., din + G * N:]),
+                a.reshape(B, nc, Lc, H).permute(0, 3, 1, 2))
+        for t in args[:3]:
+            assert sk.bulk_ready(t)
+            assert sk.operand(t, t.shape[-1]).data_ptr() == t.data_ptr()
+        assert sk.strides(args[0]) == [S * H * P, P, Lc * H * P, H * P]
+        assert sk.strides(args[1])[1] == 0          # one group
+        y = ssd(*args)
+        _close(y, ssd_ref(args[0], args[1].float(), args[2].float(),
+                          args[3]), 1e-6, 1e-6)
+    ragged = torch.ones(2, 3, 50)
+    padded = sk.operand(ragged, sk.padded_width(50, torch.float32))
+    assert padded.shape[-1] == 52 and not padded[..., 50:].any()
+    assert sk.padded_width(50, torch.bfloat16) == 56
+    odd = torch.ones(2, 3, 9)[..., 1:]              # rows 36 bytes apart
+    assert not sk.bulk_ready(odd) and sk.operand(odd, 8).is_contiguous()
+
+
+def test_stage_wrappers_check_their_operands():
+    """The stage wrappers refuse, before any launch, operands whose shapes
+    or dtypes the kernels cannot read (meta tensors: not the CPU path)."""
+    def meta(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+    x, b, a = meta(1, 2, 2, 64, 16), meta(1, 1, 2, 64, 8), meta(1, 2, 2, 64)
+    starts = meta(1, 2, 2, 16, 8)
+    with pytest.raises(ValueError, match="disagree"):
+        sk.chunk_states_cuda(x, meta(1, 1, 3, 64, 8), a)
+    with pytest.raises(ValueError, match="float32 a"):
+        sk.chunk_states_cuda(x, b, a.bfloat16())
+    with pytest.raises(ValueError, match="float32 x"):
+        sk.chunk_scan_cuda(x.bfloat16(), b, b, a, starts)
+    with pytest.raises(ValueError, match="hd % 4"):
+        sk.chunk_states_cuda(meta(1, 2, 2, 64, 10), b, a)
+    with pytest.raises(ValueError, match="N a multiple of 8"):
+        sk.chunk_states_cuda(x, meta(1, 1, 2, 64, 4, dtype=torch.bfloat16),
+                             a)
+    with pytest.raises(ValueError, match="starts"):
+        sk.chunk_scan_cuda(x, b, b, a, meta(1, 2, 2, 8, 16))
+    with pytest.raises(ValueError, match="contiguous float32 states"):
+        sk.state_pass_cuda(starts.bfloat16(), meta(1, 2, 2))
+
+
+def test_stage_wrappers_refuse_cpu_tensors():
+    """The stage wrappers launch their kernel or raise: CPU tensors are
+    refused (only ``ssd_scan_cuda`` runs the plain version for them), and
+    nothing is launched."""
+    _, (x, b, c, a) = _group_inputs(5, 1, 2, 1, 2, 64, 16, 8, "float32")
+    states = torch.zeros(1, 2, 2, 16, 8)
+    before = sk.launches.count
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.chunk_states_cuda(x, b, a)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.state_pass_cuda(states, torch.zeros(1, 2, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sk.chunk_scan_cuda(x, b, c, a, states)
+    assert sk.launches.count == before
