@@ -13,7 +13,9 @@ port's paths through the entry points a user calls:
     slots;
   * vqs and vqs-bf paths: the same cluster and law with that panel's
     J = 4, K = 16, Qcap = 1024, at offered load 0.6 (inside the proven
-    2/3 region of both policies), 128 members, 1000 slots;
+    2/3 region of both policies), 128 members, 1000 slots; then the vqs_bf
+    kernel at offered load 0.8, where its queue fills and the ring pops
+    are timed (its ``ms_at_load_0_8`` in the kernels line);
   * bfjs-mr path: ``monte_carlo_policy(..., policy="bfjs-mr",
     engine="cuda")`` — the same cluster with two resources (cpu, mem),
     each demand U[0.1, 0.9] independently, at offered load 0.8 per
@@ -1427,6 +1429,33 @@ def main() -> int:
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, plain_members=g)
         del st, got, ref, res, sub
+
+    # -- 5b. vqs-bf where it queues: offered load 0.8, so the ring pops of
+    # step (iii) are timed (VQS-BF is proven to 2/3 of the load, so drops
+    # here are a reading, not a failure)
+    lam_q = 0.8 * Lm * mu / size_mean          # lam = 16
+    st = ensemble_streams(seeds, lam_q, mu, uniform(0.1, 0.9), L=Lm, K=Km,
+                          A_max=Am, horizon=Tm, device=dev)
+    kw = dict(J=Jv, L=Lm, K=Km, Qcap=Qv, A_max=Am, work_steps=Am + 4)
+    got = vqs_bf_kernel.vqs_bf_cuda(st.n, st.sizes, st.durs, **kw)
+    mean_q = float(got.queue_len.double().mean())
+    if not mean_q > 0:
+        raise AssertionError("vqs-bf at load 0.8: the queue never filled, "
+                             "so no ring pop was timed")
+    ms = time_ms(lambda: vqs_bf_kernel.vqs_bf_cuda(st.n, st.sizes, st.durs,
+                                                   **kw), reps=3)
+    g, Tq = 2, 200
+    sub = (st.n[:g, :Tq], st.sizes[:g, :Tq], st.durs[:g, :Tq])
+    sub_got = vqs_bf_kernel.vqs_bf_cuda(*sub, **kw)
+    require_equal(f"vqs-bf at load 0.8, first {g} members x {Tq} slots",
+                  sub_got, vqs_bf_ref(*sub, **kw))
+    print(f"vqs-bf queueing G={Gm} J={Jv} L={Lm} K={Km} Qcap={Qv} "
+          f"A_max={Am} T={Tm} lam={lam_q}: kernel {ms:.1f} ms; mean queue "
+          f"{mean_q:.3f}; dropped {int(got.dropped.sum())}; truncated "
+          f"{int(got.truncated.sum())}; equal to plain on members "
+          f"0..{g - 1} x {Tq} slots (exact)")
+    rows["vqs_bf"]["ms_at_load_0_8"] = ms
+    del st, got, sub, sub_got
 
     # -- 6. bfjs-mr path at full width ----------------------------------------
     Rm, Qr = 2, 1024

@@ -14,22 +14,56 @@
 // is the one of the scan engine (repro_torch/core/engine/vqs_bf.py, the
 // plain version) on every field, occupancy included.
 //
-// What bounds it here: like the VQS kernel, a latency chain of block-wide
-// reductions — one placement per step, and one block argmin per arrival
-// still queued after the serve pass — far above its bytes and operations.
-// The TPU kernel kept three (L, K) planes and three (2J, Qcap) rings in
-// VMEM (342 KB at the slice's shape, over the 227 KB a block may use).
-// Here (vqs_common.cuh) the steps read per-server aggregates in shared
-// memory — next departure slot, occupancy, resident jobs in total and per
-// type (16-bit), configuration (k_1, j*, k_{j*}), flags, subscriptions — and
-// the (L, K) job planes live in a per-member global workspace, touched only
-// by departures and placements.  The rings (sizes, durations, sequence
-// stamps) stay in shared memory when they fit and move to the workspace
-// otherwise.  The TPU pop reduced over every one of the 2J x Qcap lanes;
-// here one warp per bucket scans only up to the bucket's high-water mark
-// (pushes fill the lowest hole, so every live entry lies below it) and the
-// per-bucket winners are combined in bucket order.  It takes every J the
-// grid allows (2 <= J <= 16) and K < 65536.
+// What bounds it: a latency chain — slot t+1 needs slot t and step s+1 needs
+// step s — far above its bytes and operations.  The design keeps the chain
+// short:
+//   * A decision warp makes every decision.  Its reductions are
+//     warp-synchronous (`redux.sync` on 32-bit integer keys of the 2^16
+//     grid, then more for the lowest index, stamp and position), so no
+//     block barrier sits inside a step.  Lane i owns servers i, i + 32,
+//     ...; the pending set (visited, not yet advanced), the _empty set and
+//     each type's subscribers are per-lane bitmasks, so a step walks only
+//     the pending servers, in index order per lane.
+//   * A server can place iff its residual takes the smallest queued job
+//     (stages (i) and (ii) need a fitting job of one bucket, so they imply
+//     it): pass 1 is one compare a server, and a pending server that misses
+//     is not tested again in the slot (the smallest job only grows, its
+//     residual does not change).  Last step's placer, while it can still
+//     place, is this step's, with nothing to touch.
+//   * Bookkeeping moves off the steps: bucket minima are rescanned only
+//     when a pop took one or arrivals changed it; the max-weight row's
+//     weights are kept per lane and moved by every change of a queue count,
+//     the queue counts live in lanes, and K_RED's rows are decoded once;
+//     occupancy is a running integer sum; a lane per bucket finds the
+//     empty ring slots; the arrival-side pass walks only the arrivals still
+//     queued.
+//   * The job planes leave device memory: a packed (L, K) plane of effective
+//     size and type (eff | vq << 17) in shared memory when it fits, per-row
+//     occupied and due-slot bitmasks, and the next departure slot per row.
+//     A placement finds its slot with one bitmask word; departures read only
+//     the due slots' packed words.  The departure slots themselves live in
+//     a per-member device workspace, written at placement and read only by
+//     the second warp.
+//   * A second warp keeps the streams and the bookkeeping off the chain: it
+//     loads and classifies slot t+1's arrivals (grid size, type, effective
+//     size, duration, rank within the type, counts per type) into a double
+//     buffer while the decision warp runs slot t, and, once the decision
+//     warp has taken slot t's departures (it signals on a named barrier),
+//     recomputes from the workspace the next departure slot and due slots of
+//     every row that lost a job.  The decision warp merges them at the start
+//     of slot t+1; the two warps meet once a slot on another named barrier.
+// At the vqs-bf path's shape the chain is still ~4,600 cycles a step on the
+// card: pass 2 over the ~445 servers a slot visits (all of _empty while
+// work is queued), the pop, and pass 1, each a series of dependent
+// shared-memory round trips and warp reductions on one warp.
+// The decision warp's loops with a trip count known only at run time are
+// not unrolled (`#pragma unroll 1`): with one warp on the SM the smaller
+// code ran faster on the card than the loads that unrolling overlaps.
+// Shared memory holds per-server aggregates (next departure, occupancy,
+// flags, configuration, resident jobs per type in 16 bits), the bitmasks,
+// the rings (sizes, durations, sequence stamps) when they fit, and the
+// packed job plane when it also fits; what does not fit moves to the
+// workspace.  It takes every J the grid allows (2 <= J <= 16) and K < 65536.
 #include <cuda_runtime.h>
 
 #include "reduce.cuh"
@@ -39,77 +73,94 @@ namespace {
 
 using namespace vqsk;
 
-__host__ Layout vqs_bf_layout(int J, int L, int K, int Qcap, int A) {
-  const size_t nvq = 2 * J;
-  const size_t fixed = (4 * J - 4) * nvq + 7 * static_cast<size_t>(L) +
-                       (static_cast<size_t>(L) * nvq + 1) / 2 + 9 * nvq +
-                       7 * static_cast<size_t>(A);
-  return split_layout(fixed, 3 * nvq * Qcap, L, K);
-}
+constexpr int kBfThreads = 64;    // warp 0 decides, warp 1 streams and books
+constexpr int kSlotBarrier = 1;   // both warps, once a slot
+constexpr int kDepartBarrier = 2; // decision warp arrives, stream warp waits
+constexpr int kEffBits = 17;      // effective sizes are <= RES = 2^16
+constexpr int kEffMask = (1 << kEffBits) - 1;
+constexpr int kNone = 0x7fffffff;
 
-struct MinLL {
-  __device__ long long operator()(long long a, long long b) const { return a < b ? a : b; }
+__host__ __device__ inline int row_words(int K) { return (K + 31) / 32; }
+__host__ __device__ inline int lane_words(int L) { return ((L + 31) / 32 + 31) / 32; }
+__host__ __device__ inline int arrival_words(int A, int nvq) { return 4 * A + 2 * nvq; }
+
+struct BfLayout {
+  bool rings_in_smem, jobs_in_smem;
+  size_t shared_bytes;     // dynamic shared memory of one block
+  size_t workspace_bytes;  // device workspace of one member (16-aligned)
 };
 
-// Block-wide broadcast slots.
-enum Bc : int { kArrived, kQtot, kHx, kRK1, kRJs, kRKs, kDo1, kDoJ, kJsx, kResid, kNumBc };
-
-// Pop order: larger size, then smaller sequence stamp, then lower position.
-__device__ __forceinline__ bool pops_before(int e, int s, int q, int be, int bs, int bq) {
-  return e > be || (e == be && (s < bs || (s == bs && q < bq)));
+// The fixed part always sits in shared memory; the rings join it when they
+// fit, then the packed job plane when it fits too.  The workspace holds the
+// departure slots, then whatever did not fit.
+__host__ BfLayout vqs_bf_layout(int J, int L, int K, int Qcap, int A) {
+  const size_t nvq = 2 * J, C = 4 * J - 4, KW = row_words(K), NW = lane_words(L);
+  const size_t Ls = L;
+  const size_t fixed = C * nvq + C + 6 * Ls + 3 * KW * Ls + (4 + nvq) * 32 * NW + 3 * nvq +
+                       2 * arrival_words(A, nvq) + 3 * static_cast<size_t>(A) +
+                       (Ls * nvq + 1) / 2;
+  const size_t rings = 3 * nvq * Qcap, jobs = Ls * K;
+  BfLayout lay;
+  lay.rings_in_smem = 4 * (fixed + rings) + kStaticSmem <= kSmemLimit;
+  size_t words = fixed + (lay.rings_in_smem ? rings : 0);
+  lay.jobs_in_smem = 4 * (words + jobs) + kStaticSmem <= kSmemLimit;
+  if (lay.jobs_in_smem) words += jobs;
+  lay.shared_bytes = 4 * words;
+  const size_t ws = 4 * (jobs + (lay.rings_in_smem ? 0 : rings) + (lay.jobs_in_smem ? 0 : jobs));
+  lay.workspace_bytes = (ws + 15) / 16 * 16;
+  return lay;
 }
 
-// minBlocks = 1 lets ptxas use up to 65536 / kThreads registers; without
-// it, ptxas held this kernel to 64 and spilled.
-__global__ void __launch_bounds__(kThreads, 1)
+// Where the rings and the packed job plane live is a template argument, so
+// the compiler addresses them as shared memory (LDS/STS) when they are.
+template <bool kRingsInSmem, bool kJobsInSmem>
+__global__ void __launch_bounds__(kBfThreads, 1)
 vqs_bf_kernel(const int* __restrict__ n, const float* __restrict__ sizes,
               const int* __restrict__ durs, const int* __restrict__ confs_in, int T, int J,
               int L, int K, int Qcap, int A, int D, int W, unsigned char* __restrict__ ws,
-              size_t ws_stride, int rings_in_smem, int* __restrict__ qlen,
+              size_t ws_stride, int* __restrict__ qlen,
               float* __restrict__ occ_out, int* __restrict__ ndep_out,
               int* __restrict__ dropped_out, int* __restrict__ trunc_out) {
   extern __shared__ __align__(16) int smem[];
-  __shared__ int redi[32];
-  __shared__ long long redl[32];
-  __shared__ int bc[kNumBc];
-
-  const int nvq = 2 * J, C = 4 * J - 4;
-  int* confs = smem;                // (C, 2J) K_RED
-  int* next_dep = confs + C * nvq;  // per server (L each) ...
+  const int nvq = 2 * J, C = 4 * J - 4, KW = row_words(K), NW = lane_words(L);
+  const int AB = arrival_words(A, nvq);
+  int* confs = smem;                   // (C, 2J) K_RED
+  int* next_dep = confs + C * nvq;     // per server (L each) ...
   int* occ = next_dep + L;
-  int* njobs = occ + L;
-  int* cfg_js = njobs + L;
+  int* flags = occ + L;
+  int* cfg_js = flags + L;
   int* cfg_ks = cfg_js + L;
-  int* flags = cfg_ks + L;
-  unsigned* want = reinterpret_cast<unsigned*>(flags + L);  // subscriptions
-  unsigned short* tcnt = reinterpret_cast<unsigned short*>(flags + 2 * L);  // (L, 2J)
-  int* qcnt = flags + 2 * L + (L * nvq + 1) / 2;  // per queue (2J each) ...
-  int* hw = qcnt + nvq;        // high-water mark: live entries lie below
-  int* row_min = hw + nvq;     // smallest queued size
-  int* best_e = row_min + nvq;  // the bucket's pop candidate
-  int* best_s = best_e + nvq;
-  int* best_q = best_s + nvq;
-  int* a_cnt = best_q + nvq;   // this slot's arrivals of the type
-  int* a_off = a_cnt + nvq;    // arrivals of lower types
-  int* a_found = a_off + nvq;  // of them, how many found an empty slot
-  int* a_vq = a_found + nvq;   // per arrival lane (A each) ...
-  int* a_eff = a_vq + A;
-  int* a_dur = a_eff + A;
-  int* a_rank = a_dur + A;
-  int* a_pos = a_rank + A;
+  int* rec_nd = cfg_ks + L;           // recomputed next departure
+  unsigned* occm = reinterpret_cast<unsigned*>(rec_nd + L);  // (L, KW) occupied slots
+  unsigned* due = occm + static_cast<size_t>(L) * KW;        // slots leaving at next_dep
+  unsigned* rec_mask = due + static_cast<size_t>(L) * KW;    // recomputed due slots
+  unsigned* pend = rec_mask + static_cast<size_t>(L) * KW;   // (NW, 32) pending servers
+  unsigned* fail = pend + 32 * NW;     // (NW, 32) pending servers that cannot place
+  unsigned* recf = fail + 32 * NW;     // (NW, 32) rows whose next departure is recomputed
+  unsigned* inem = recf + 32 * NW;     // (NW, 32) members of the scheduler's _empty set
+  unsigned* subs = inem + 32 * NW;     // (2J, NW, 32) subscribers of each type
+  int* rowcfg = reinterpret_cast<int*>(subs + nvq * 32 * NW);  // (C) K_RED rows decoded
+  int* hw = rowcfg + C;                // per queue (2J each): high-water mark, live entries below
+  int* rmin = hw + nvq;                // smallest queued size
+  int* found = rmin + nvq;             // this slot's arrivals that found a slot
+  int* abuf = found + nvq;             // 2 x slot buffers of classified arrivals
+  int* epos = abuf + 2 * AB;           // empty ring slots found, grouped by type
+  int* a_pos = epos + A;
   int* a_land = a_pos + A;
-  int* epos = a_land + A;      // empty ring slots found, grouped by type
+  unsigned short* tcnt = reinterpret_cast<unsigned short*>(a_land + A);  // (L, 2J)
+  int* tail = reinterpret_cast<int*>(tcnt) + (L * nvq + 1) / 2;
 
-  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t g = blockIdx.x;
   const size_t ring_words = static_cast<size_t>(nvq) * Qcap;
-  const JobPlanes jp = job_planes(ws + g * ws_stride, L, K, 3 * ring_words, rings_in_smem);
-  int* srv = jp.srv;
-  int* dep = jp.dep;
-  signed char* vqof = jp.vqof;
-  int* ring_eff = rings_in_smem ? epos + A : jp.rings;
+  const size_t LK = static_cast<size_t>(L) * K;
+  int* dep = reinterpret_cast<int*>(ws + g * ws_stride);  // (L, K) departure slots
+  int* wnext = dep + LK;
+  int* ring_eff = kRingsInSmem ? tail : wnext;
   int* ring_dur = ring_eff + ring_words;
   int* ring_seq = ring_dur + ring_words;
+  int* job = kJobsInSmem ? (kRingsInSmem ? tail + 3 * ring_words : tail)
+                         : (kRingsInSmem ? wnext : wnext + 3 * ring_words);
   n += g * T;
   sizes += g * T * A;
   durs += g * T * static_cast<size_t>(D);
@@ -117,340 +168,553 @@ vqs_bf_kernel(const int* __restrict__ n, const float* __restrict__ sizes,
   occ_out += g * T;
   ndep_out += g * T;
 
-  for (int i = tid; i < C * nvq; i += nt) confs[i] = confs_in[i];
-  for (int l = tid; l < L; l += nt) {
-    next_dep[l] = kInfSlot;
-    occ[l] = njobs[l] = cfg_ks[l] = want[l] = 0;
+  for (int i = tid; i < C * nvq; i += kBfThreads) confs[i] = confs_in[i];
+  // row c of K_RED as a renewal: k_1 > 0 (bit 0), j* + 1 (bits 1-6; 0 when
+  // the row has no type but 1), k_{j*} (bits 7 and up)
+  for (int c = tid; c < C; c += kBfThreads) {
+    const int* row = confs_in + c * nvq;
+    int js = -1;
+    for (int j = 0; j < nvq && js < 0; ++j) {
+      if (j != 1 && row[j] > 0) js = j;
+    }
+    rowcfg[c] = (row[1] > 0) | ((js + 1) << 1) | ((js >= 0 ? row[js] : 0) << 7);
+  }
+  for (int l = tid; l < L; l += kBfThreads) {
+    next_dep[l] = rec_nd[l] = kInfSlot;
+    occ[l] = cfg_ks[l] = flags[l] = 0;
     cfg_js[l] = -1;
-    flags[l] = kInEmpty;  // all servers start empty
   }
-  for (int i = tid; i < L * nvq; i += nt) tcnt[i] = 0;
-  for (int j = tid; j < nvq; j += nt) qcnt[j] = hw[j] = 0;
-  for (size_t i = tid; i < static_cast<size_t>(L) * K; i += nt) {
-    srv[i] = 0;
-    dep[i] = kInfSlot;
-    vqof[i] = -1;
+  for (size_t i = tid; i < static_cast<size_t>(L) * KW; i += kBfThreads) occm[i] = due[i] = 0u;
+  for (int i = tid; i < L * nvq; i += kBfThreads) tcnt[i] = 0;
+  for (int i = tid; i < 32 * NW; i += kBfThreads) {
+    pend[i] = fail[i] = recf[i] = 0u;
+    unsigned all = 0u;  // all servers start in _empty
+    for (int bit = 0; bit < 32; ++bit) {
+      if (((i / 32) * 32 + bit) * 32 + i % 32 < L) all |= 1u << bit;
+    }
+    inem[i] = all;
   }
-  for (size_t i = tid; i < ring_words; i += nt) {
+  for (int i = tid; i < nvq * 32 * NW; i += kBfThreads) subs[i] = 0u;
+  for (int j = tid; j < nvq; j += kBfThreads) {
+    hw[j] = 0;
+    rmin[j] = kInf32;
+  }
+  for (size_t i = tid; i < ring_words; i += kBfThreads) {
     ring_eff[i] = 0;
     ring_dur[i] = 1;
     ring_seq[i] = 0;
   }
   __syncthreads();
 
-  // Counters of thread 0, written out at the end; the sequence counter is
-  // the same in every thread.
-  int dropped = 0, n_trunc = 0, seq_ctr = 0;
+  if (warp == 1) {
+    // ---- the stream and bookkeeping warp --------------------------------
+    // Slot u's arrivals, classified: type (-1 past n[u]), effective size,
+    // duration (the last A of the row's D lanes), rank among the slot's
+    // arrivals of its type; per type, the count and the arrivals of lower
+    // types.
+    auto classify_slot = [&](int u) {
+      int* b = abuf + (u & 1) * AB;
+      int *bvq = b, *beff = b + A, *bdur = b + 2 * A, *brank = b + 3 * A;
+      int *bcnt = b + 4 * A, *boff = bcnt + nvq;
+      const int n_u = n[u];
+      for (int a = lane; a < A; a += 32) {
+        int v = -1, e = 0, d = 0;
+        if (a < n_u) {
+          const int gq = to_grid(sizes[static_cast<size_t>(u) * A + a]);
+          v = classify(gq, J);
+          e = effective(gq, v, J);
+          d = durs[static_cast<size_t>(u) * D + D - A + a];
+        }
+        bvq[a] = v;
+        beff[a] = e;
+        bdur[a] = d;
+      }
+      __syncwarp();
+      for (int a = lane; a < A; a += 32) {
+        const int v = bvq[a];
+        int r = 0;
+        for (int c = 0; c < a; ++c) r += bvq[c] == v;
+        brank[a] = r;
+      }
+      for (int j = lane; j < nvq; j += 32) {
+        int c = 0, o = 0;
+        for (int a = 0; a < A; ++a) {
+          const int v = bvq[a];
+          c += v == j;
+          o += v >= 0 && v < j;
+        }
+        bcnt[j] = c;
+        boff[j] = o;
+      }
+    };
+    // Next departure and due slots of each row that lost jobs at slot t,
+    // over the jobs it kept (their departure slots were written before t).
+    auto recompute = [&](int t) {
+      for (int w = 0; w < NW; ++w) {
+        unsigned m = recf[w * 32 + lane];
+        while (m) {
+          const int l = (w * 32 + __ffs(m) - 1) * 32 + lane;
+          m &= m - 1;
+          const int* drow = dep + static_cast<size_t>(l) * K;
+          unsigned* rm = rec_mask + static_cast<size_t>(l) * KW;
+          int nd = kInfSlot;
+          for (int kw = 0; kw < KW; ++kw) {
+            for (unsigned b = rm[kw]; b; b &= b - 1) {
+              const int dk = drow[kw * 32 + __ffs(b) - 1];
+              if (dk > t && dk < nd) nd = dk;
+            }
+          }
+          for (int kw = 0; kw < KW; ++kw) {
+            unsigned out = 0u;
+            for (unsigned b = rm[kw]; b; b &= b - 1) {
+              const int k = __ffs(b) - 1;
+              if (nd != kInfSlot && drow[kw * 32 + k] == nd) out |= 1u << k;
+            }
+            rm[kw] = out;
+          }
+          rec_nd[l] = nd;
+        }
+      }
+    };
+    if (T > 0) classify_slot(0);
+    repro::named_barrier(kSlotBarrier, kBfThreads);
+    for (int t = 0; t < T; ++t) {
+      if (t + 1 < T) classify_slot(t + 1);
+      repro::named_barrier(kDepartBarrier, kBfThreads);
+      recompute(t);
+      repro::named_barrier(kSlotBarrier, kBfThreads);
+    }
+    return;
+  }
 
-  // One job onto the first empty slot of server s (warp 0, result of lane
-  // 0): resident aggregates follow; a full row places nothing.
-  auto place = [&](int s, int e, int d, int v, int t) {
-    int* row = srv + static_cast<size_t>(s) * K;
-    const int k = warp_first_free(row, K);
+  // ---- the decision warp -------------------------------------------------
+  repro::named_barrier(kSlotBarrier, kBfThreads);
+  // Warp-uniform state: counters, the sequence counter, the running
+  // occupancy and queue totals, the smallest queued size over all buckets
+  // and the buckets whose minimum is stale; each lane keeps the max-weight
+  // weights of K_RED rows `lane` and `lane + 32`.
+  int dropped = 0, n_trunc = 0, seq_ctr = 0, q_tot = 0, glob_min = kInf32;
+  unsigned occ_tot = 0u, dirty = 0u;
+  int w_lo = 0, w_hi = 0;
+  const int c_lo = lane, c_hi = lane + 32;
+  int qcnt = 0;  // lane j: jobs queued in bucket j
+
+  // A queue count moved by `delta`: the weights of the rows follow.
+  auto move_count = [&](int j, int delta) {
+    if (c_lo < C) w_lo += delta * confs[c_lo * nvq + j];
+    if (c_hi < C) w_hi += delta * confs[c_hi * nvq + j];
+  };
+
+  // Smallest entry of bucket j, and the smallest over all buckets; lowers
+  // the bucket's high-water mark to just past its last entry.
+  auto rescan = [&](int j) {
+    const int* re = ring_eff + static_cast<size_t>(j) * Qcap;
+    const int other = lane < nvq && lane != j ? rmin[lane] : kInf32;
+    int m = kInf32, top = -1;
+#pragma unroll 1
+    for (int q = lane; q < hw[j]; q += 32) {
+      const int e = re[q];
+      if (e > 0) {
+        m = min(m, e);
+        top = q;
+      }
+    }
+    m = __reduce_min_sync(repro::kFullMask, m);
+    top = __reduce_max_sync(repro::kFullMask, top);
+    glob_min = __reduce_min_sync(repro::kFullMask, min(other, m));
+    __syncwarp();
     if (lane == 0) {
+      rmin[j] = m;
+      hw[j] = top + 1;
+    }
+    __syncwarp();
+  };
+
+  // the lane word and bit of server s in a per-lane mask
+  auto mask_at = [&](int s) { return ((s >> 5) >> 5) * 32 + (s & 31); };
+  auto mask_bit = [&](int s) { return 1u << ((s >> 5) & 31); };
+
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    const int* b = abuf + (t & 1) * AB;
+    const int *bvq = b, *beff = b + A, *bdur = b + 2 * A, *brank = b + 3 * A;
+    const int *bcnt = b + 4 * A, *boff = bcnt + nvq;
+
+    // One job onto the first empty slot of server s: resident aggregates
+    // and the row's next departure follow; a full row places nothing.
+    auto place = [&](int s, int e, int d, int v) {
+      const unsigned* om = occm + static_cast<size_t>(s) * KW;
+      int k = K;
+#pragma unroll 1
+      for (int kw = 0; kw < KW; ++kw) {
+        const int rest = K - 32 * kw;
+        const unsigned avail = ~om[kw] & (rest >= 32 ? 0xffffffffu : (1u << rest) - 1u);
+        if (avail) {
+          k = 32 * kw + __ffs(avail) - 1;
+          break;
+        }
+      }
       if (k < K) {
-        const int dd = add_wrap(t, d);
-        row[k] = e;
-        dep[static_cast<size_t>(s) * K + k] = dd;
-        vqof[static_cast<size_t>(s) * K + k] = static_cast<signed char>(v);
-        occ[s] += e;
-        ++njobs[s];
-        ++tcnt[s * nvq + v];
-        if (dd > t) next_dep[s] = min(next_dep[s], dd);
+        if (lane == 0) {
+          const int dd = add_wrap(t, d);
+          const size_t at = static_cast<size_t>(s) * K + k;
+          job[at] = e | (v << kEffBits);
+          dep[at] = dd;
+          occ[s] += e;
+          ++tcnt[s * nvq + v];
+          occm[static_cast<size_t>(s) * KW + k / 32] |= 1u << (k & 31);
+          if (dd > t) {
+            unsigned* dm = due + static_cast<size_t>(s) * KW;
+            const int nd = next_dep[s];
+            if (dd < nd) {
+              next_dep[s] = dd;
+#pragma unroll 1
+              for (int kw = 0; kw < KW; ++kw) dm[kw] = kw == k / 32 ? 1u << (k & 31) : 0u;
+            } else if (dd == nd) {
+              dm[k / 32] |= 1u << (k & 31);
+            }
+          }
+        }
+        occ_tot += static_cast<unsigned>(e);
       } else {
         ++n_trunc;  // K-overflow: the popped job is not placed
       }
-      flags[s] &= ~kInEmpty;
-    }
-  };
+      if (lane == 0) inem[mask_at(s)] &= ~mask_bit(s);
+      __syncwarp();
+    };
 
-  for (int t = 0; t < T; ++t) {
-    // 1. departures: scan a server's row only when its next departure is due
-    int my_dep = 0;
-    for (int l = tid; l < L; l += nt) {
-      int f = flags[l] & kSlotFlags;
-      if (next_dep[l] == t) {
-        int* row = srv + static_cast<size_t>(l) * K;
-        int* drow = dep + static_cast<size_t>(l) * K;
-        signed char* vrow = vqof + static_cast<size_t>(l) * K;
-        int nd = kInfSlot, c = 0, out = 0;
-        for (int k = 0; k < K; ++k) {
-          const int dk = drow[k];
-          if (dk == t) {
-            out += row[k];
-            --tcnt[l * nvq + vrow[k]];
-            row[k] = 0;
-            drow[k] = kInfSlot;
-            vrow[k] = -1;
-            ++c;
-          } else if (dk > t && dk < nd) {
-            nd = dk;
-          }
+    // A job leaves bucket j's ring at `at`.
+    auto unqueue = [&](int j, size_t at) {
+      if (lane == 0) ring_eff[at] = 0;
+      if (lane == j) --qcnt;
+      --q_tot;
+      move_count(j, -1);
+      __syncwarp();
+    };
+
+    // 0. the next departures the stream warp recomputed for last slot's rows
+#pragma unroll 1
+    for (int w = 0; w < NW; ++w) {
+      unsigned m = recf[w * 32 + lane];
+      recf[w * 32 + lane] = 0u;
+      while (m) {
+        const int l = (w * 32 + __ffs(m) - 1) * 32 + lane;
+        m &= m - 1;
+        const int nd = rec_nd[l], cur = next_dep[l];
+        unsigned* dm = due + static_cast<size_t>(l) * KW;
+        const unsigned* rm = rec_mask + static_cast<size_t>(l) * KW;
+        if (nd < cur) {
+          next_dep[l] = nd;
+#pragma unroll 1
+          for (int kw = 0; kw < KW; ++kw) dm[kw] = rm[kw];
+        } else if (nd == cur && nd != kInfSlot) {
+#pragma unroll 1
+          for (int kw = 0; kw < KW; ++kw) dm[kw] |= rm[kw];
         }
-        occ[l] -= out;
-        njobs[l] -= c;
-        next_dep[l] = nd;
-        my_dep += c;
-        f |= kFreed;
       }
-      if (njobs[l] == 0) f |= kEmptyNow;
-      flags[l] = f;
     }
-    const int n_dep = repro::block_reduce(my_dep, redi, repro::SumI());
 
-    // 2. arrivals: classify one lane per thread; the r-th arrival of a type
-    // takes the r-th empty slot of its bucket (a warp per bucket finds them)
-    const int n_t = n[t];
-    classify_arrivals(sizes + static_cast<size_t>(t) * A, durs + static_cast<size_t>(t) * D, n_t,
-                      A, D, J, a_vq, a_eff, a_dur);
-    __syncthreads();
-    for (int a = tid; a < A; a += nt) {
-      const int v = a_vq[a];
-      int rank = 0;
-      for (int b = 0; b < a; ++b) rank += a_vq[b] == v;
-      a_rank[a] = rank;
-    }
-    for (int j = tid; j < nvq; j += nt) {
-      int c = 0, o = 0;
-      for (int b = 0; b < A; ++b) {
-        const int v = a_vq[b];
-        c += v == j;
-        o += v >= 0 && v < j;
+    // 1. arrivals: the r-th arrival of a type takes the r-th empty slot of
+    // its bucket (a lane per bucket finds them)
+    const int c_j = lane < nvq ? bcnt[lane] : 0;
+    const unsigned arrived = __ballot_sync(repro::kFullMask, c_j > 0);
+    int f_j = 0;
+    if (c_j > 0) {
+      const int* re = ring_eff + static_cast<size_t>(lane) * Qcap;
+      int* ep = epos + boff[lane];
+      int last = 0;
+#pragma unroll 1
+      for (int q = 0; q < Qcap && f_j < c_j; ++q) {
+        if (re[q] == 0) {
+          ep[f_j++] = q;
+          last = q;
+        }
       }
-      a_cnt[j] = c;
-      a_off[j] = o;
+      found[lane] = f_j;
+      qcnt += f_j;
+      if (f_j > 0) hw[lane] = max(hw[lane], last + 1);
     }
-    __syncthreads();
-    for (int j = warp; j < nvq; j += nt >> 5) {
-      const int c = a_cnt[j];
-      const int* re = ring_eff + static_cast<size_t>(j) * Qcap;
-      int base = 0;
-      for (int q0 = 0; q0 < Qcap && base < c; q0 += 32) {
-        const int q = q0 + lane;
-        const bool empty = q < Qcap && re[q] == 0;
-        const unsigned b = __ballot_sync(repro::kFullMask, empty);
-        const int r = base + __popc(b & ((1u << lane) - 1));
-        if (empty && r < c) epos[a_off[j] + r] = q;
-        base += __popc(b);
-      }
-      if (lane == 0) a_found[j] = min(base, c);
+    dropped += __reduce_add_sync(repro::kFullMask, c_j - f_j);
+    q_tot += __reduce_add_sync(repro::kFullMask, f_j);
+    __syncwarp();
+    for (unsigned m = arrived; m; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+      move_count(j, found[j]);
     }
-    __syncthreads();
-    for (int a = tid; a < A; a += nt) {
-      const int v = a_vq[a];
-      const int land = v >= 0 && a_rank[a] < a_found[v];
+#pragma unroll 1
+    for (int a = lane; a < A; a += 32) {
+      const int v = bvq[a];
+      const int land = v >= 0 && brank[a] < found[v];
       int pos = 0;
       if (land) {
-        pos = epos[a_off[v] + a_rank[a]];
+        pos = epos[boff[v] + brank[a]];
         const size_t at = static_cast<size_t>(v) * Qcap + pos;
-        ring_eff[at] = a_eff[a];
-        ring_dur[at] = a_dur[a];
+        ring_eff[at] = beff[a];
+        ring_dur[at] = bdur[a];
         ring_seq[at] = seq_ctr + a;
       }
       a_land[a] = land;
       a_pos[a] = pos;
     }
-    if (tid == 0) {
-      unsigned arrived = 0;
-      int qtot = 0;
-      for (int j = 0; j < nvq; ++j) {
-        const int c = a_cnt[j], found = a_found[j];
-        if (c > 0) arrived |= 1u << j;  // every sampled arrival wakes
-        if (found > 0) hw[j] = max(hw[j], epos[a_off[j] + found - 1] + 1);
-        qcnt[j] += found;
-        dropped += c - found;
-        qtot += qcnt[j];
-      }
-      bc[kArrived] = static_cast<int>(arrived);
-      bc[kQtot] = qtot;
-    }
-    __syncthreads();
     const int slot_seq = seq_ctr;
     seq_ctr += A;
+    dirty |= arrived;
+    __syncwarp();
 
-    // 3. visit set
-    visit_pass(flags, want, L, static_cast<unsigned>(bc[kArrived]), bc[kQtot]);
+    // 2. departures (only the due slots; the lanes walk their due rows
+    // together), then the visit set — freed servers, subscribers woken by
+    // an arrived type (those subscriptions are consumed), and _empty members
+    // while work is queued — and its slot flags.  Flags of servers outside
+    // the set are not read this slot.
+    int my_dep = 0, my_pend = 0;
+    unsigned my_out = 0u;
+#pragma unroll 1
+    for (int w = 0; w < NW; ++w) {
+      unsigned dm = 0u, fr = 0u, rm = 0u;
+#pragma unroll 8
+      for (int bit = 0; bit < 32; ++bit) {
+        const int l = (w * 32 + bit) * 32 + lane;
+        if (l < L && next_dep[l] == t) dm |= 1u << bit;
+      }
+      while (dm) {
+        const int bit = __ffs(dm) - 1;
+        dm &= dm - 1;
+        const int l = (w * 32 + bit) * 32 + lane;
+        unsigned* om = occm + static_cast<size_t>(l) * KW;
+        unsigned* lv = due + static_cast<size_t>(l) * KW;
+        unsigned* keep = rec_mask + static_cast<size_t>(l) * KW;
+        int out = 0, c = 0;
+        bool kept = false;
+#pragma unroll 1
+        for (int kw = 0; kw < KW; ++kw) {
+          const unsigned leave = lv[kw], left = om[kw] & ~leave;
+          for (unsigned x = leave; x; x &= x - 1) {
+            const int p = job[static_cast<size_t>(l) * K + kw * 32 + __ffs(x) - 1];
+            out += p & kEffMask;
+            --tcnt[l * nvq + (p >> kEffBits)];
+            ++c;
+          }
+          om[kw] = left;
+          keep[kw] = left;
+          lv[kw] = 0u;
+          kept = kept || left != 0u;
+        }
+        occ[l] -= out;
+        next_dep[l] = kInfSlot;
+        my_out += static_cast<unsigned>(out);
+        my_dep += c;
+        if (kept) rm |= 1u << bit;
+        if (c) fr |= 1u << bit;
+      }
+      unsigned woken = 0u;
+      for (unsigned m = arrived; m; m &= m - 1) {
+        unsigned* sj = subs + (__ffs(m) - 1) * 32 * NW + w * 32 + lane;
+        woken |= *sj;
+        *sj = 0u;
+      }
+      const unsigned pm = fr | woken | (q_tot > 0 ? inem[w * 32 + lane] : 0u);
+      for (unsigned m = pm; m; m &= m - 1) {
+        const int bit = __ffs(m) - 1;
+        const int l = (w * 32 + bit) * 32 + lane;
+        int f = (flags[l] & (kK1 | kHasCfg)) | ((fr >> bit) & 1u ? kFreed : 0);
+        const unsigned* om = occm + static_cast<size_t>(l) * KW;
+        bool empty_now = true;
+#pragma unroll 1
+        for (int kw = 0; kw < KW; ++kw) empty_now = empty_now && om[kw] == 0u;
+        if (empty_now) f |= kEmptyNow;
+        if ((f & kEmptyNow) || !(f & kHasCfg)) f |= kRenew;
+        flags[l] = f;
+      }
+      pend[w * 32 + lane] = pm;
+      fail[w * 32 + lane] = 0u;
+      recf[w * 32 + lane] = rm;
+      my_pend += __popc(pm);
+    }
+    const int n_dep = __reduce_add_sync(repro::kFullMask, my_dep);
+    occ_tot -= __reduce_add_sync(repro::kFullMask, my_out);
+    int n_pend = __reduce_add_sync(repro::kFullMask, my_pend);
+    // the rows that lost jobs are ready for the stream warp
+    asm volatile("bar.arrive %0, %1;" ::"r"(kDepartBarrier), "r"(kBfThreads) : "memory");
 
-    // 4. work list: at most W+1 one-placement steps
+    for (unsigned m = dirty; m; m &= m - 1) rescan(__ffs(m) - 1);
+    dirty = 0u;
+
+    // 3. work list: at most W+1 one-placement steps
     bool done = false;
+    int placer = -1;  // last step's placer; pending servers below it were advanced
+#pragma unroll 1
     for (int step = 0; step <= W; ++step) {
-      for (int j = warp; j < nvq; j += nt >> 5) {
-        // a warp per bucket: the smallest queued size of bucket j
-        const int* re = ring_eff + static_cast<size_t>(j) * Qcap;
-        int m = kInf32;
-        for (int q = lane; q < hw[j]; q += 32) {
-          const int e = re[q];
-          if (e > 0 && e < m) m = e;
-        }
-        m = warp_min(m);
-        if (lane == 0) row_min[j] = m;
-      }
-      if (warp == 0) {
-        const unsigned hx = __ballot_sync(repro::kFullMask, lane < nvq && qcnt[lane] > 0);
-        const int r = max_weight_row(confs, qcnt, C, nvq);
-        if (lane == 0) {
-          const int js = first_other_type(confs + r * nvq, nvq);
-          bc[kHx] = static_cast<int>(hx);
-          bc[kRK1] = confs[r * nvq + 1] > 0;
-          bc[kRJs] = js;
-          bc[kRKs] = js >= 0 ? confs[r * nvq + js] : 0;
-        }
-      }
-      __syncthreads();
-      const unsigned hx = static_cast<unsigned>(bc[kHx]);
-      const int r_k1 = bc[kRK1], r_js = bc[kRJs], r_ks = bc[kRKs];
-      int glob_min = kInf32;
-      for (int j = 0; j < nvq; ++j) glob_min = min(glob_min, row_min[j]);
-
-      auto view = [&](int l, int f, int& k1, int& js, int& ks, bool& has1, bool& k1_can,
-                      bool& js_can, bool& any_can, int& cnt_js, int& resid) {
-        const bool ren = (f & kRenew) && !(f & kTouched);
-        k1 = ren ? r_k1 : (f & kK1) != 0;
-        js = ren ? r_js : cfg_js[l];
-        ks = ren ? r_ks : cfg_ks[l];
-        resid = kCap - occ[l];
-        has1 = tcnt[l * nvq + 1] > 0;
-        cnt_js = js >= 0 ? tcnt[l * nvq + js] : 0;
-        k1_can = k1 && !has1 && row_min[1] <= resid;
-        js_can = js >= 0 && cnt_js < ks && row_min[js] <= resid;
-        any_can = glob_min <= resid;
-        return ren;
-      };
-
-      // pass 1: the placer is the lowest pending server that can place
-      int key = L + 1;
-      for (int l = tid; l < L; l += nt) {
-        const int f = flags[l];
-        if (!(f & kVisit) || (f & kAdvanced)) continue;
-        int k1, js, ks, cnt_js, resid;
-        bool has1, k1_can, js_can, any_can;
-        view(l, f, k1, js, ks, has1, k1_can, js_can, any_can, cnt_js, resid);
-        key = min(key, (k1_can || js_can || any_can) ? l : L);
-      }
-      key = repro::block_reduce(key, redi, repro::MinI());
-      if (key > L) {
+      if (n_pend == 0) {
         done = true;
         break;
       }
-      const int placer = key;
+      // A server can place when its residual takes the smallest queued job
+      // (stages (i) and (ii) need a job of one bucket that fits, so they
+      // imply it).  While last step's placer still can, it is the lowest
+      // pending server that can, and touching it again changes nothing.
+      const int occ_max = kCap - glob_min;
+      if (placer < 0 || occ[placer] > occ_max) {
+        // pass 1: the lowest pending server that can place.  One that
+        // cannot stays unable for the rest of the list (the smallest job
+        // only grows, its residual does not change), so it is tested once.
+        int first = L;
+#pragma unroll 1
+        for (int w = 0; w < NW && first == L; ++w) {
+          unsigned bad = 0u;
+          for (unsigned m = pend[w * 32 + lane] & ~fail[w * 32 + lane]; m; m &= m - 1) {
+            const int bit = __ffs(m) - 1;
+            const int l = (w * 32 + bit) * 32 + lane;
+            if (occ[l] <= occ_max) {
+              first = l;
+              break;
+            }
+            bad |= 1u << bit;
+          }
+          if (bad) fail[w * 32 + lane] |= bad;
+        }
+        placer = __reduce_min_sync(repro::kFullMask, first);
 
-      // pass 2: touch every pending server up to the placer, advance past
-      // the ones below it
-      for (int l = tid; l < L && l <= placer; l += nt) {
-        int f = flags[l];
-        if (!(f & kVisit) || (f & kAdvanced)) continue;
-        int k1, js, ks, cnt_js, resid;
-        bool has1, k1_can, js_can, any_can;
-        const bool ren = view(l, f, k1, js, ks, has1, k1_can, js_can, any_can, cnt_js, resid);
-        if (ren) {
-          f = r_k1 ? (f | kK1) : (f & ~kK1);
-          cfg_js[l] = r_js;
-          cfg_ks[l] = r_ks;
+        // the renewal candidate, the first max-weight row of K_RED (Eq. 8),
+        // and the non-empty queues
+        const unsigned hx = __ballot_sync(repro::kFullMask, qcnt > 0);
+        int bw = -1, bc = kNone;
+        if (c_lo < C) { bw = w_lo; bc = c_lo; }
+        if (c_hi < C && w_hi > bw) { bw = w_hi; bc = c_hi; }
+        unsigned best;
+        const int r = repro::warp_argmax_key(static_cast<unsigned>(bw + 1), bc, best);
+        const int rc = rowcfg[r];
+        const int r_k1 = rc & 1, r_js = ((rc >> 1) & 63) - 1, r_ks = rc >> 7;
+
+        // pass 2: touch every pending server up to the placer (renewal at
+        // first touch, _empty membership), advance past the ones below it
+        // (subscribing them to the types they wait for)
+        int adv = 0;
+#pragma unroll 1
+        for (int w = 0; w < NW; ++w) {
+          unsigned keep = pend[w * 32 + lane];
+          for (unsigned m = keep; m; m &= m - 1) {
+            const int bit = __ffs(m) - 1;
+            const int l = (w * 32 + bit) * 32 + lane;
+            if (l > placer) break;
+            int f = flags[l];
+            const bool ren = (f & kRenew) && !(f & kTouched);
+            const int k1 = ren ? r_k1 : (f & kK1) != 0;
+            const int js = ren ? r_js : cfg_js[l];
+            const int ks = ren ? r_ks : cfg_ks[l];
+            if (ren) {
+              f = r_k1 ? (f | kK1) : (f & ~kK1);
+              cfg_js[l] = r_js;
+              cfg_ks[l] = r_ks;
+            }
+            if (!(f & kTouched) && (f & kEmptyNow)) inem[w * 32 + lane] |= 1u << bit;
+            f |= kHasCfg | kTouched;
+            if (l < placer) {
+              keep &= ~(1u << bit);
+              ++adv;
+              if (k1 && !((hx >> 1) & 1u) && tcnt[l * nvq + 1] == 0)
+                subs[1 * 32 * NW + w * 32 + lane] |= 1u << bit;
+              if (js >= 0 && !((hx >> js) & 1u) && tcnt[l * nvq + js] < ks)
+                subs[js * 32 * NW + w * 32 + lane] |= 1u << bit;
+            }
+            flags[l] = f;
+          }
+          pend[w * 32 + lane] = keep;
         }
-        if (!(f & kTouched) && (f & kEmptyNow)) f |= kInEmpty;  // first touch
-        f |= kHasCfg | kTouched;
-        if (l < placer) {
-          f |= kAdvanced;
-          unsigned w = want[l];
-          if (k1 && !has1 && !((hx >> 1) & 1)) w |= 2u;
-          if (js >= 0 && cnt_js < ks && !((hx >> js) & 1)) w |= 1u << js;
-          want[l] = w;
-        } else {
-          bc[kDo1] = k1_can;
-          bc[kDoJ] = !k1_can && js_can;
-          bc[kJsx] = max(js, 0);
-          bc[kResid] = resid;
+        n_pend -= __reduce_add_sync(repro::kFullMask, adv);
+        __syncwarp();
+        if (placer == L) {  // every pending server was advanced
+          placer = -1;
+          continue;
         }
-        flags[l] = f;
       }
-      __syncthreads();
-      if (placer == L) continue;  // every pending server was advanced
 
-      // serve the placer: each allowed bucket's warp finds its largest
-      // entry <= the residual (FIFO among equals) ...
-      const int do1 = bc[kDo1], doj = bc[kDoJ], jsx = bc[kJsx], cap = bc[kResid];
-      for (int j = warp; j < nvq; j += nt >> 5) {
-        int be = 0, bs = kInf32, bq = kInf32;
-        if (do1 ? j == 1 : (!doj || j == jsx)) {
-          const int* re = ring_eff + static_cast<size_t>(j) * Qcap;
-          const int* rs = ring_seq + static_cast<size_t>(j) * Qcap;
-          for (int q = lane; q < hw[j]; q += 32) {
-            const int e = re[q];
-            if (e > 0 && e <= cap && pops_before(e, rs[q], q, be, bs, bq)) {
-              be = e;
-              bs = rs[q];
+      // serve the placer, staged (i) -> (ii) -> (iii): the largest entry <=
+      // its residual over the allowed buckets whose smallest entry fits,
+      // lowest bucket on ties, then FIFO (smallest stamp), then lowest
+      // position
+      const int fp = flags[placer], resid = kCap - occ[placer];
+      const int js = cfg_js[placer];
+      const bool do1 = (fp & kK1) && tcnt[placer * nvq + 1] == 0 && rmin[1] <= resid;
+      const bool doj = !do1 && js >= 0 && tcnt[placer * nvq + js] < cfg_ks[placer] &&
+                       rmin[js] <= resid;
+      const unsigned allowed = (do1 ? 2u : doj ? 1u << js : 0xffffffffu) &
+                               __ballot_sync(repro::kFullMask, lane < nvq && rmin[lane] <= resid);
+      unsigned bk = 0u;  // (size << 5) | (31 - bucket): larger size, then lower bucket
+      int bs = kNone, bq = kNone;
+      for (unsigned m = allowed; m; m &= m - 1) {
+        const int j = __ffs(m) - 1;
+        const int* re = ring_eff + static_cast<size_t>(j) * Qcap;
+        const int* rs = ring_seq + static_cast<size_t>(j) * Qcap;
+#pragma unroll 1
+        for (int q = lane; q < hw[j]; q += 32) {
+          const int e = re[q];
+          if (e > 0 && e <= resid) {
+            const unsigned k = (static_cast<unsigned>(e) << 5) | static_cast<unsigned>(31 - j);
+            const int s = rs[q];
+            if (k > bk || (k == bk && (s < bs || (s == bs && q < bq)))) {
+              bk = k;
+              bs = s;
               bq = q;
             }
           }
         }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const int oe = __shfl_xor_sync(repro::kFullMask, be, off);
-          const int os = __shfl_xor_sync(repro::kFullMask, bs, off);
-          const int oq = __shfl_xor_sync(repro::kFullMask, bq, off);
-          if (pops_before(oe, os, oq, be, bs, bq)) {
-            be = oe;
-            bs = os;
-            bq = oq;
-          }
-        }
-        if (lane == 0) {
-          best_e[j] = be;
-          best_s[j] = bs;
-          best_q[j] = bq;
-        }
       }
-      __syncthreads();
-      // ... and the largest wins, lowest bucket on ties (warp 0 pops it)
-      if (warp == 0) {
-        int bj = -1, be = 0;
-        for (int j = 0; j < nvq; ++j) {
-          if (best_e[j] > be) {
-            be = best_e[j];
-            bj = j;
-          }
-        }
-        if (bj >= 0) {
-          const size_t at = static_cast<size_t>(bj) * Qcap + best_q[bj];
-          place(placer, be, ring_dur[at], bj, t);
-          if (lane == 0) {
-            ring_eff[at] = 0;
-            --qcnt[bj];
-          }
-        }
+      const unsigned pk = __reduce_max_sync(repro::kFullMask, bk);
+      if (pk != 0u) {
+        const int ps = __reduce_min_sync(repro::kFullMask, bk == pk ? bs : kNone);
+        const int pq = __reduce_min_sync(repro::kFullMask, bk == pk && bs == ps ? bq : kNone);
+        const int pj = 31 - static_cast<int>(pk & 31u), pe = static_cast<int>(pk >> 5);
+        const size_t at = static_cast<size_t>(pj) * Qcap + pq;
+        place(placer, pe, ring_dur[at], pj);
+        unqueue(pj, at);
+        if (pe == rmin[pj]) rescan(pj);  // else the bucket's smallest stays
       }
-      __syncthreads();
     }
     // step bound hit with servers still unserved: the slot finished lazily
-    if (!done) n_trunc += any_pending(flags, L, redi);
+    if (!done) n_trunc += n_pend > 0 ? 1 : 0;
 
-    // 5. arrival-side BF-J pass, lane by lane: an arrival still in its
-    // bucket (same sequence stamp) goes to the tightest feasible server
-    for (int a = 0; a < A; ++a) {
-      if (!a_land[a]) continue;
-      const int v = a_vq[a], e = a_eff[a];
-      const size_t at = static_cast<size_t>(v) * Qcap + a_pos[a];
-      if (!(ring_eff[at] > 0 && ring_seq[at] == slot_seq + a)) continue;
-      long long best = 0x7fffffffffffffffLL;
-      for (int l = tid; l < L; l += nt) {
-        const int r = kCap - occ[l];
-        if (r >= e) best = min(best, (static_cast<long long>(r) << 32) | l);
+    // 4. arrival-side BF-J pass over the arrivals still in their bucket
+    // (same sequence stamp): each goes to the tightest feasible server
+#pragma unroll 1
+    for (int a0 = 0; a0 < A; a0 += 32) {
+      const int a = a0 + lane;
+      bool queued = false;
+      if (a < A && a_land[a]) {
+        const size_t at = static_cast<size_t>(bvq[a]) * Qcap + a_pos[a];
+        queued = ring_eff[at] > 0 && ring_seq[at] == slot_seq + a;
       }
-      best = repro::block_reduce(best, redl, MinLL());
-      if (best == 0x7fffffffffffffffLL) continue;  // fits no server
-      if (warp == 0) {
-        place(static_cast<int>(best & 0xffffffff), e, a_dur[a], v, t);
-        if (lane == 0) {
-          ring_eff[at] = 0;
-          --qcnt[v];
+      for (unsigned m = __ballot_sync(repro::kFullMask, queued); m; m &= m - 1) {
+        const int aa = a0 + __ffs(m) - 1;
+        const int v = bvq[aa], e = beff[aa];
+        unsigned br = repro::kNoMinKey;
+        int bl = L;
+#pragma unroll 1
+        for (int l = lane; l < L; l += 32) {
+          const int rr = kCap - occ[l];
+          if (rr >= e && static_cast<unsigned>(rr) < br) {
+            br = static_cast<unsigned>(rr);
+            bl = l;
+          }
         }
+        unsigned bestr;
+        const int s = repro::warp_argmin_key(br, bl, bestr);
+        if (bestr == repro::kNoMinKey) continue;  // fits no server
+        place(s, e, bdur[aa], v);
+        unqueue(v, static_cast<size_t>(v) * Qcap + a_pos[aa]);
+        dirty |= 1u << v;
       }
-      __syncthreads();
     }
 
-    write_slot(occ, qcnt, L, nvq, n_dep, redi, qlen + t, occ_out + t, ndep_out + t);
+    // the slot's outputs: queued jobs, occupancy as the float of the int32
+    // grid sum over RES, departures
+    if (lane == 0) {
+      qlen[t] = q_tot;
+      occ_out[t] = __int2float_rn(static_cast<int>(occ_tot)) / 65536.f;
+      ndep_out[t] = n_dep;
+    }
+    repro::named_barrier(kSlotBarrier, kBfThreads);
   }
-  if (tid == 0) {
+  if (lane == 0) {
     dropped_out[g] = dropped;
     trunc_out[g] = n_trunc;
   }
@@ -470,14 +734,17 @@ extern "C" int vqs_bf_launch(const int* n, const float* sizes, const int* durs,
                              const int* confs, int G, int T, int J, int L, int K, int Qcap, int A,
                              int D, int W, int /*drain: VQS only*/, void* ws, int* qlen,
                              float* occ, int* ndep, int* dropped, int* truncated, void* stream) {
-  const Layout lay = vqs_bf_layout(J, L, K, Qcap, A);
-  cudaError_t err = cudaFuncSetAttribute(
-      vqs_bf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(lay.shared_bytes));
+  const BfLayout lay = vqs_bf_layout(J, L, K, Qcap, A);
+  auto kernel = lay.rings_in_smem ? (lay.jobs_in_smem ? vqs_bf_kernel<true, true>
+                                                      : vqs_bf_kernel<true, false>)
+                                  : (lay.jobs_in_smem ? vqs_bf_kernel<false, true>
+                                                      : vqs_bf_kernel<false, false>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(lay.shared_bytes));
   if (err != cudaSuccess) return err;
-  vqs_bf_kernel<<<G, kThreads, lay.shared_bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<G, kBfThreads, lay.shared_bytes, static_cast<cudaStream_t>(stream)>>>(
       n, sizes, durs, confs, T, J, L, K, Qcap, A, D, W, static_cast<unsigned char*>(ws),
-      lay.workspace_bytes, lay.rings_in_smem, qlen, occ, ndep, dropped, truncated);
+      lay.workspace_bytes, qlen, occ, ndep, dropped, truncated);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 // Pieces shared by the VQS-family kernels (vqs.cu, vqs_bf.cu).
 //
 // Both kernels simulate one ensemble member per thread block over the whole
-// horizon, on the int32 RES = 2^16 size grid of the engines, and split the
-// member's state the same way (the shared-memory layout rule is
-// `split_layout`):
+// horizon, on the int32 RES = 2^16 size grid of the engines, with the
+// constants, flag bits and grid arithmetic below.  vqs.cu splits the
+// member's state by `split_layout`:
 //   * shared memory: the K_RED table, per-server aggregates that every
 //     work-list step reads (next departure slot, occupancy, resident jobs,
 //     configuration, flag bits, 32-bit subscription mask), per-queue
@@ -12,8 +12,9 @@
 //     job planes — sizes and departure slots as int32, VQ types as int8 —
 //     which are touched only by departures and placements, and the ring
 //     planes when they do not fit beside the rest.
-// The Python side reads the layout through the exported
-// `<name>_shared_bytes` / `<name>_workspace_bytes`; it is written only here.
+// vqs_bf.cu lays its own state out (`vqs_bf_layout`).  The Python side reads
+// either layout through the exported `<name>_shared_bytes` /
+// `<name>_workspace_bytes`; it is written only in the kernels' sources.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -161,18 +162,6 @@ __device__ __forceinline__ int first_other_type(const int* row, int nvq) {
     if (j != 1 && row[j] > 0) return j;
   }
   return -1;
-}
-
-// First empty slot (size 0) of a server row — called by a whole warp,
-// result in every lane; K when the row is full.
-__device__ __forceinline__ int warp_first_free(const int* row, int K) {
-  const int lane = threadIdx.x & 31;
-  for (int k0 = 0; k0 < K; k0 += 32) {
-    const int k = k0 + lane;
-    const unsigned b = __ballot_sync(repro::kFullMask, k < K && row[k] == 0);
-    if (b) return k0 + __ffs(b) - 1;
-  }
-  return K;
 }
 
 // This slot's arrivals, a lane per thread: VQ type (-1 for lanes past

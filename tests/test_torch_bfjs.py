@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro.core.engine import make_streams as j_make_streams  # noqa: E402
 from repro.core.engine import run_bfjs_streams as j_run  # noqa: E402
@@ -34,10 +35,16 @@ def _sampler(key, n):
     return jax.random.uniform(key, (n,), minval=0.05, maxval=0.5)
 
 
+def _constant(v):
+    def sampler(key, n):
+        return jnp.full((n,), v, dtype=jnp.float32)
+    return sampler
+
+
 def _jax_streams(G, L, K, A_max, T, lam=1.2, mu=0.02, seed=0,
-                 fault_rate=0.0):
+                 fault_rate=0.0, sampler=_sampler):
     keys = jax.random.split(jax.random.PRNGKey(seed), G)
-    return [j_make_streams(k, lam, mu, _sampler, L=L, K=K, A_max=A_max,
+    return [j_make_streams(k, lam, mu, sampler, L=L, K=K, A_max=A_max,
                            horizon=T, fault_rate=fault_rate, repair_rate=0.3)
             for k in keys]
 
@@ -96,18 +103,36 @@ def test_scan_engine_unbatched_streams():
                                  for x in port)), [ref])
 
 
-@pytest.mark.parametrize("G,L,K,Qcap,A_max,T,window", [
-    (2, 4, 6, 64, 6, 120, None),
-    (3, 4, 6, 64, 6, 240, 80),
-    (1, 8, 4, 32, 4, 96, 32),
+# (G, L, K, Qcap, A_max, T, window, lam, mu, size, W): windowed grids, then
+# the streams the CUDA kernel's card tests probe its design with — one
+# size everywhere (residual ties), full rows that still take a job (the
+# slot-0 overwrite), a deep queue that drops arrivals, and a two-step work
+# list that cuts slots short
+@pytest.mark.parametrize("G,L,K,Qcap,A_max,T,window,lam,mu,size,W", [
+    pytest.param(2, 4, 6, 64, 6, 120, None, 1.2, 0.02, None, None,
+                 id="2-4-6-64-6-120-None"),
+    pytest.param(3, 4, 6, 64, 6, 240, 80, 1.2, 0.02, None, None,
+                 id="3-4-6-64-6-240-80"),
+    pytest.param(1, 8, 4, 32, 4, 96, 32, 1.2, 0.02, None, None,
+                 id="1-8-4-32-4-96-32"),
+    pytest.param(2, 5, 8, 64, 6, 120, None, 1.5, 0.02, 0.25, None,
+                 id="constant-sizes"),
+    pytest.param(2, 3, 3, 64, 6, 120, None, 2.0, 0.02, 0.25, None,
+                 id="full-rows-overwrite"),
+    pytest.param(2, 3, 4, 16, 6, 150, None, 4.0, 0.01, None, None,
+                 id="deep-queue-drops"),
+    pytest.param(2, 4, 6, 64, 6, 120, None, 2.0, 0.02, None, 2,
+                 id="two-step-list"),
 ])
-def test_bfjs_plain_version_matches_pallas(G, L, K, Qcap, A_max, T, window):
+def test_bfjs_plain_version_matches_pallas(G, L, K, Qcap, A_max, T, window,
+                                           lam, mu, size, W):
     """The kernel wrapper on CPU tensors (its plain version) == the JAX
     Pallas kernel in interpret mode, including windowed grids."""
-    sts = _jax_streams(G, L, K, A_max, T)
+    sts = _jax_streams(G, L, K, A_max, T, lam=lam, mu=mu,
+                       sampler=_sampler if size is None else _constant(size))
     n, sizes, durs = (np.stack([np.asarray(getattr(s, f)) for s in sts])
                       for f in ("n", "sizes", "durs"))
-    W = A_max + 4
+    W = A_max + 4 if W is None else W
     qlen, occ, ndep, dropped, trunc = bfjs_pallas(
         n, sizes, durs, L=L, K=K, Qcap=Qcap, A_max=A_max, work_steps=W,
         window=window, interpret=True)
@@ -122,6 +147,10 @@ def test_bfjs_plain_version_matches_pallas(G, L, K, Qcap, A_max, T, window):
     np.testing.assert_array_equal(port.dropped, np.asarray(dropped))
     np.testing.assert_array_equal(port.truncated, np.asarray(trunc))
     np.testing.assert_allclose(port.occupancy, np.asarray(occ), rtol=1e-6)
+    if Qcap == 16:
+        assert port.dropped.sum() > 0
+    if W == 2:
+        assert port.truncated.sum() > 0
 
 
 def test_window_must_divide_horizon():

@@ -84,6 +84,65 @@ def test_bfjs_kernel_equals_plain(cuda, G, L, K, Qcap, A_max, T, lam, mu, W):
         assert int(got.dropped.sum()) > 0 and int(got.truncated.sum()) > 0
 
 
+def _constant(v):
+    def sampler(gen, n, device):
+        return torch.full((n,), v, dtype=torch.float32, device=device)
+    return sampler
+
+
+# (G, L, K, Qcap, A_max, T, lam, mu, W, sizes): the edges of the kernel's
+# design — two mask words a lane (L > 1024, not a multiple of 32), residual
+# ties everywhere (one size), full rows that still fit (the slot-0
+# overwrite), a small queue that fills, drains and drops, more arrival
+# lanes than a warp with a shorter work list, departures every slot, and
+# the full-width shape
+BFJS_EDGE_CASES = [
+    pytest.param(2, 1100, 4, 512, 16, 60, 60.0, 0.05, 20, (0.05, 0.5),
+                 id="two-mask-words"),
+    pytest.param(2, 37, 8, 256, 8, 200, 3.0, 0.02, 12, 0.25,
+                 id="constant-sizes"),
+    pytest.param(2, 20, 3, 256, 8, 200, 3.0, 0.02, 12, 0.25,
+                 id="full-rows-overwrite"),
+    pytest.param(2, 8, 6, 16, 12, 300, 3.0, 0.1, 16, (0.3, 0.9),
+                 id="small-queue-drops"),
+    pytest.param(2, 40, 8, 512, 40, 150, 30.0, 0.05, 20, (0.05, 0.5),
+                 id="wide-arrivals-truncate"),
+    pytest.param(2, 50, 6, 256, 8, 200, 10.0, 0.95, 12, (0.05, 0.9),
+                 id="departures-every-slot"),
+    pytest.param(2, 1000, 16, 4096, 48, 200, 17.0, 0.01, 52, (0.1, 0.9),
+                 id="full-width"),
+]
+
+
+@pytest.mark.parametrize("G,L,K,Qcap,A_max,T,lam,mu,W,sizes",
+                         BFJS_EDGE_CASES)
+def test_bfjs_kernel_equals_plain_at_its_edges(cuda, G, L, K, Qcap, A_max,
+                                               T, lam, mu, W, sizes):
+    import ctypes
+    from repro_torch.kernels.bfjs.ops import bfjs_scratch_bytes
+    sampler = _constant(sizes) if isinstance(sizes, float) \
+        else _sampler(*sizes)
+    st = ensemble_streams(range(G), lam, mu, sampler, L=L, K=K,
+                          A_max=A_max, horizon=T, device=cuda)
+    kw = dict(L=L, K=K, Qcap=Qcap, A_max=A_max, work_steps=W)
+    got = bfjs_kernel.bfjs_cuda(st.n, st.sizes, st.durs, **kw)
+    torch.cuda.synchronize()
+    ref = bfjs_ref(st.n, st.sizes, st.durs, **kw)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    fn = bfjs_kernel._lib().bfjs_shared_bytes
+    fn.restype = ctypes.c_size_t
+    fn.argtypes = [ctypes.c_int] * 4
+    assert fn(L, K, Qcap, A_max) == bfjs_scratch_bytes(L, K, Qcap, A_max)
+    if Qcap == 16:
+        assert int(got.dropped.sum()) > 0
+    if W < A_max:
+        assert int(got.truncated.sum()) > 0
+    if mu > 0.9:
+        ndep = torch.diff(got.departed, dim=1)
+        assert bool((ndep[:, 10:] > 0).all())
+
+
 def test_monte_carlo_cuda_engine_equals_scan_on_card(cuda):
     wl = Workload(lam=2.0, mu=0.02, sampler=_sampler(0.1, 0.9))
     cfg = dict(L=12, K=8, Qcap=256, A_max=8, horizon=150, device=cuda)
@@ -170,6 +229,58 @@ def test_vqs_bf_kernel_equals_plain(cuda, G, J, L, K, Qcap, A_max, T, lam,
                                     mu, W):
     _vqs_case("vqs_bf", vqs_bf_ref, cuda, G, J, L, K, Qcap, A_max, T, lam,
               mu, W)
+
+
+# (G, J, L, K, Qcap, A_max, T, lam, mu, W, sizes): the edges of the VQS-BF
+# kernel's design — two mask words a lane (L > 1024, not a multiple of 32),
+# two bitmask words a row (K > 32) with K-overflow, the job plane in the
+# workspace (K = 64 at L = 1000), one size everywhere (ties broken by the
+# sequence stamp), more arrival lanes than a warp with a shorter work list,
+# departures every slot, and the full-width shape under a load that queues
+VQS_BF_EDGE_CASES = [
+    pytest.param(2, 4, 1100, 8, 256, 16, 60, 40.0, 0.05, None, (0.05, 0.9),
+                 id="two-mask-words"),
+    pytest.param(2, 6, 8, 48, 128, 16, 150, 12.0, 0.02, None, (0.01, 0.05),
+                 id="two-row-words"),
+    pytest.param(2, 4, 1000, 64, 1024, 48, 100, 20.0, 0.02, None,
+                 (0.05, 0.9), id="job-plane-in-workspace"),
+    pytest.param(2, 3, 37, 8, 256, 8, 200, 3.0, 0.02, None, 0.25,
+                 id="constant-sizes"),
+    pytest.param(2, 4, 40, 8, 512, 40, 150, 30.0, 0.05, 20, (0.05, 0.9),
+                 id="wide-arrivals-truncate"),
+    pytest.param(2, 4, 50, 6, 256, 8, 200, 10.0, 0.95, None, (0.05, 0.9),
+                 id="departures-every-slot"),
+    pytest.param(2, 4, 1000, 16, 1024, 48, 200, 44.0, 0.025, None,
+                 (0.3, 0.9), id="full-width-queueing"),
+]
+
+
+@pytest.mark.parametrize("G,J,L,K,Qcap,A_max,T,lam,mu,W,sizes",
+                         VQS_BF_EDGE_CASES)
+def test_vqs_bf_kernel_equals_plain_at_its_edges(cuda, G, J, L, K, Qcap,
+                                                 A_max, T, lam, mu, W, sizes):
+    sampler = _constant(sizes) if isinstance(sizes, float) \
+        else _sampler(*sizes)
+    st = ensemble_streams(range(G), lam, mu, sampler, L=L, K=K,
+                          A_max=A_max, horizon=T, device=cuda)
+    kw = dict(J=J, L=L, K=K, Qcap=Qcap, A_max=A_max,
+              work_steps=A_max + 4 if W is None else W)
+    before = vqs_bf_kernel.launches.count
+    got = vqs_bf_kernel.vqs_bf_cuda(st.n, st.sizes, st.durs, **kw)
+    torch.cuda.synchronize()
+    assert vqs_bf_kernel.launches.count == before + 1
+    want = vqs_bf_ref(st.n, st.sizes, st.durs, **kw)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if K == 48:  # more jobs fit a server than it has slots
+        assert int(got.truncated.sum()) > 0
+    if W is not None and W < A_max:
+        assert int(got.truncated.sum()) > 0
+    if mu > 0.9:
+        ndep = torch.diff(got.departed, dim=1)
+        assert bool((ndep[:, 10:] > 0).all())
+    if lam == 44.0:
+        assert float(got.queue_len.double().mean()) > 0
 
 
 @pytest.mark.parametrize("policy", ["vqs", "vqs-bf"])

@@ -151,24 +151,45 @@ def test_scan_engine_returns_the_jax_carry():
                                       err_msg=name)
 
 
-def test_plain_version_matches_pallas():
+# (G, J, L, K, Qcap, A_max, T, lam, mu, lo, hi, W): a windowed grid, then
+# the streams the CUDA kernel's card tests probe its design with — one size
+# everywhere (pops tie on size and go by sequence stamp), full rows (K <
+# 2^J: K-overflow), a deep queue that drops arrivals, and a two-step work
+# list that cuts slots short
+@pytest.mark.parametrize("G,J,L,K,Qcap,A_max,T,lam,mu,lo,hi,W", [
+    pytest.param(2, 3, 4, 8, 48, 5, 100, 1.0, 0.03, 0.05, 0.9, None,
+                 id="windowed"),
+    pytest.param(2, 3, 5, 8, 48, 5, 100, 1.5, 0.03, 0.25, 0.25, None,
+                 id="constant-sizes"),
+    pytest.param(2, 3, 4, 3, 48, 6, 100, 1.5, 0.03, 0.05, 0.9, None,
+                 id="k-overflow"),
+    pytest.param(2, 3, 3, 8, 8, 6, 100, 4.0, 0.01, 0.05, 0.9, None,
+                 id="deep-queue-drops"),
+    pytest.param(2, 3, 3, 8, 48, 6, 100, 4.0, 0.01, 0.05, 0.9, 2,
+                 id="two-step-list"),
+])
+def test_plain_version_matches_pallas(G, J, L, K, Qcap, A_max, T, lam, mu,
+                                      lo, hi, W):
     """The kernel wrapper on CPU tensors (its plain version) == the JAX
     Pallas kernel in interpret mode."""
     from repro.core.engine import SchedStreams as JStreams
-    G, J, L, K, Qcap, A_max, T = 2, 3, 4, 8, 48, 5, 100
-    sts = _jax_streams(G, L, K, A_max, T)
+    sts = _jax_streams(G, L, K, A_max, T, lam=lam, mu=mu, lo=lo, hi=hi)
     n, sizes, durs = _stack(sts)
     ref = j_vqs_bf_simulate(JStreams(n, sizes, durs), J=J, L=L, K=K,
-                            Qcap=Qcap, A_max=A_max, window=50)
+                            Qcap=Qcap, A_max=A_max, work_steps=W, window=50)
     before = vqs_bf_kernel.launches.count
     port = result_to_numpy(vqs_bf_simulate(
         streams_from_numpy(n, sizes, durs, device="cpu"), J=J, L=L, K=K,
-        Qcap=Qcap, A_max=A_max, window=50))
+        Qcap=Qcap, A_max=A_max, work_steps=W, window=50))
     assert vqs_bf_kernel.launches.count == before  # CPU: plain version
     for f in FIELDS[:5]:
         np.testing.assert_array_equal(getattr(port, f),
                                       np.asarray(getattr(ref, f)),
                                       err_msg=f)
+    if K < 1 << J or W == 2:
+        assert port.truncated.sum() > 0
+    if Qcap == 8:
+        assert port.dropped.sum() > 0
 
 
 def test_server_slot_overflow_is_counted():
@@ -266,9 +287,13 @@ def test_scratch_bytes_fit_the_slice_and_fig5_shapes():
     from repro_torch.kernels.common import SMEM_LIMIT_BYTES
     from repro_torch.kernels.vqs.vqs import load
     ws = load("vqs_bf").vqs_bf_workspace_bytes
-    jobs = -(-9 * 1000 * 16 // 16) * 16  # the (L, K) planes alone
+    # the (L, K) departure slots alone: rings and the packed job plane fit
+    # in shared memory at the slice's shape
+    jobs = 4 * 1000 * 16
     assert ws(4, 1000, 16, 1024, 48) == jobs
     for J, Qcap in ((4, 1024), (7, 1024), (7, 4096), (4, 4096)):
         assert vqs_bf_scratch_bytes(J, 1000, 16, Qcap, 48) \
             <= SMEM_LIMIT_BYTES
     assert ws(7, 1000, 16, 4096, 48) > jobs
+    # K = 64: the packed job plane joins the departure slots there
+    assert ws(4, 1000, 64, 1024, 48) == 2 * 4 * 1000 * 64
