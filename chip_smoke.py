@@ -14,8 +14,9 @@ port's paths through the entry points a user calls:
   * vqs and vqs-bf paths: the same cluster and law with that panel's
     J = 4, K = 16, Qcap = 1024, at offered load 0.6 (inside the proven
     2/3 region of both policies), 128 members, 1000 slots; then the vqs_bf
-    kernel at offered load 0.8, where its queue fills and the ring pops
-    are timed (its ``ms_at_load_0_8`` in the kernels line);
+    and vqs kernels at offered load 0.8, where their queues fill and the
+    ring pops and packing bursts are timed (``ms_at_load_0_8`` in the
+    kernels line);
   * bfjs-mr path: ``monte_carlo_policy(..., policy="bfjs-mr",
     engine="cuda")`` — the same cluster with two resources (cpu, mem),
     each demand U[0.1, 0.9] independently, at offered load 0.8 per
@@ -1455,6 +1456,30 @@ def main() -> int:
           f"{int(got.truncated.sum())}; equal to plain on members "
           f"0..{g - 1} x {Tq} slots (exact)")
     rows["vqs_bf"]["ms_at_load_0_8"] = ms
+    del got, sub, sub_got
+
+    # -- 5c. vqs where it queues: the same streams at offered load 0.8, so
+    # the walk over the pending servers and the packing bursts from deep
+    # rings are timed (drops here are a reading, not a failure)
+    kw = dict(J=Jv, L=Lm, K=Km, Qcap=Qv, A_max=Am, work_steps=Am + 4,
+              drain=16)
+    got = vqs_kernel.vqs_cuda(st.n, st.sizes, st.durs, **kw)
+    mean_q = float(got.queue_len.double().mean())
+    if not mean_q > 0:
+        raise AssertionError("vqs at load 0.8: the queue never filled, so no "
+                             "packing burst was timed")
+    ms = time_ms(lambda: vqs_kernel.vqs_cuda(st.n, st.sizes, st.durs, **kw),
+                 reps=3)
+    sub = (st.n[:g, :Tq], st.sizes[:g, :Tq], st.durs[:g, :Tq])
+    sub_got = vqs_kernel.vqs_cuda(*sub, **kw)
+    require_equal(f"vqs at load 0.8, first {g} members x {Tq} slots",
+                  sub_got, vqs_ref(*sub, **kw))
+    print(f"vqs queueing G={Gm} J={Jv} L={Lm} K={Km} Qcap={Qv} A_max={Am} "
+          f"T={Tm} lam={lam_q}: kernel {ms:.1f} ms; mean queue "
+          f"{mean_q:.3f}; dropped {int(got.dropped.sum())}; truncated "
+          f"{int(got.truncated.sum())}; equal to plain on members "
+          f"0..{g - 1} x {Tq} slots (exact)")
+    rows["vqs"]["ms_at_load_0_8"] = ms
     del st, got, sub, sub_got
 
     # -- 6. bfjs-mr path at full width ----------------------------------------

@@ -76,13 +76,7 @@ using namespace vqsk;
 constexpr int kBfThreads = 64;    // warp 0 decides, warp 1 streams and books
 constexpr int kSlotBarrier = 1;   // both warps, once a slot
 constexpr int kDepartBarrier = 2; // decision warp arrives, stream warp waits
-constexpr int kEffBits = 17;      // effective sizes are <= RES = 2^16
-constexpr int kEffMask = (1 << kEffBits) - 1;
 constexpr int kNone = 0x7fffffff;
-
-__host__ __device__ inline int row_words(int K) { return (K + 31) / 32; }
-__host__ __device__ inline int lane_words(int L) { return ((L + 31) / 32 + 31) / 32; }
-__host__ __device__ inline int arrival_words(int A, int nvq) { return 4 * A + 2 * nvq; }
 
 struct BfLayout {
   bool rings_in_smem, jobs_in_smem;
@@ -169,16 +163,7 @@ vqs_bf_kernel(const int* __restrict__ n, const float* __restrict__ sizes,
   ndep_out += g * T;
 
   for (int i = tid; i < C * nvq; i += kBfThreads) confs[i] = confs_in[i];
-  // row c of K_RED as a renewal: k_1 > 0 (bit 0), j* + 1 (bits 1-6; 0 when
-  // the row has no type but 1), k_{j*} (bits 7 and up)
-  for (int c = tid; c < C; c += kBfThreads) {
-    const int* row = confs_in + c * nvq;
-    int js = -1;
-    for (int j = 0; j < nvq && js < 0; ++j) {
-      if (j != 1 && row[j] > 0) js = j;
-    }
-    rowcfg[c] = (row[1] > 0) | ((js + 1) << 1) | ((js >= 0 ? row[js] : 0) << 7);
-  }
+  for (int c = tid; c < C; c += kBfThreads) rowcfg[c] = decode_row(confs_in + c * nvq, nvq);
   for (int l = tid; l < L; l += kBfThreads) {
     next_dep[l] = rec_nd[l] = kInfSlot;
     occ[l] = cfg_ks[l] = flags[l] = 0;
@@ -208,80 +193,17 @@ vqs_bf_kernel(const int* __restrict__ n, const float* __restrict__ sizes,
 
   if (warp == 1) {
     // ---- the stream and bookkeeping warp --------------------------------
-    // Slot u's arrivals, classified: type (-1 past n[u]), effective size,
-    // duration (the last A of the row's D lanes), rank among the slot's
-    // arrivals of its type; per type, the count and the arrivals of lower
-    // types.
-    auto classify_slot = [&](int u) {
-      int* b = abuf + (u & 1) * AB;
-      int *bvq = b, *beff = b + A, *bdur = b + 2 * A, *brank = b + 3 * A;
-      int *bcnt = b + 4 * A, *boff = bcnt + nvq;
-      const int n_u = n[u];
-      for (int a = lane; a < A; a += 32) {
-        int v = -1, e = 0, d = 0;
-        if (a < n_u) {
-          const int gq = to_grid(sizes[static_cast<size_t>(u) * A + a]);
-          v = classify(gq, J);
-          e = effective(gq, v, J);
-          d = durs[static_cast<size_t>(u) * D + D - A + a];
-        }
-        bvq[a] = v;
-        beff[a] = e;
-        bdur[a] = d;
-      }
-      __syncwarp();
-      for (int a = lane; a < A; a += 32) {
-        const int v = bvq[a];
-        int r = 0;
-        for (int c = 0; c < a; ++c) r += bvq[c] == v;
-        brank[a] = r;
-      }
-      for (int j = lane; j < nvq; j += 32) {
-        int c = 0, o = 0;
-        for (int a = 0; a < A; ++a) {
-          const int v = bvq[a];
-          c += v == j;
-          o += v >= 0 && v < j;
-        }
-        bcnt[j] = c;
-        boff[j] = o;
-      }
+    // slot u's arrivals, classified and ranked within their type
+    auto load_slot = [&](int u) {
+      classify_slot(abuf + (u & 1) * AB, n[u], sizes + static_cast<size_t>(u) * A,
+                    durs + static_cast<size_t>(u) * D, A, D, J);
     };
-    // Next departure and due slots of each row that lost jobs at slot t,
-    // over the jobs it kept (their departure slots were written before t).
-    auto recompute = [&](int t) {
-      for (int w = 0; w < NW; ++w) {
-        unsigned m = recf[w * 32 + lane];
-        while (m) {
-          const int l = (w * 32 + __ffs(m) - 1) * 32 + lane;
-          m &= m - 1;
-          const int* drow = dep + static_cast<size_t>(l) * K;
-          unsigned* rm = rec_mask + static_cast<size_t>(l) * KW;
-          int nd = kInfSlot;
-          for (int kw = 0; kw < KW; ++kw) {
-            for (unsigned b = rm[kw]; b; b &= b - 1) {
-              const int dk = drow[kw * 32 + __ffs(b) - 1];
-              if (dk > t && dk < nd) nd = dk;
-            }
-          }
-          for (int kw = 0; kw < KW; ++kw) {
-            unsigned out = 0u;
-            for (unsigned b = rm[kw]; b; b &= b - 1) {
-              const int k = __ffs(b) - 1;
-              if (nd != kInfSlot && drow[kw * 32 + k] == nd) out |= 1u << k;
-            }
-            rm[kw] = out;
-          }
-          rec_nd[l] = nd;
-        }
-      }
-    };
-    if (T > 0) classify_slot(0);
+    if (T > 0) load_slot(0);
     repro::named_barrier(kSlotBarrier, kBfThreads);
     for (int t = 0; t < T; ++t) {
-      if (t + 1 < T) classify_slot(t + 1);
+      if (t + 1 < T) load_slot(t + 1);
       repro::named_barrier(kDepartBarrier, kBfThreads);
-      recompute(t);
+      recompute_departures(recf, dep, rec_mask, rec_nd, NW, K, t);
       repro::named_barrier(kSlotBarrier, kBfThreads);
     }
     return;
@@ -295,15 +217,11 @@ vqs_bf_kernel(const int* __restrict__ n, const float* __restrict__ sizes,
   // weights of K_RED rows `lane` and `lane + 32`.
   int dropped = 0, n_trunc = 0, seq_ctr = 0, q_tot = 0, glob_min = kInf32;
   unsigned occ_tot = 0u, dirty = 0u;
-  int w_lo = 0, w_hi = 0;
-  const int c_lo = lane, c_hi = lane + 32;
+  MaxWeight mw;
   int qcnt = 0;  // lane j: jobs queued in bucket j
 
   // A queue count moved by `delta`: the weights of the rows follow.
-  auto move_count = [&](int j, int delta) {
-    if (c_lo < C) w_lo += delta * confs[c_lo * nvq + j];
-    if (c_hi < C) w_hi += delta * confs[c_hi * nvq + j];
-  };
+  auto move_count = [&](int j, int delta) { mw.move(confs, C, nvq, j, delta); };
 
   // Smallest entry of bucket j, and the smallest over all buckets; lowers
   // the bucket's high-water mark to just past its last entry.
@@ -329,10 +247,6 @@ vqs_bf_kernel(const int* __restrict__ n, const float* __restrict__ sizes,
     }
     __syncwarp();
   };
-
-  // the lane word and bit of server s in a per-lane mask
-  auto mask_at = [&](int s) { return ((s >> 5) >> 5) * 32 + (s & 31); };
-  auto mask_bit = [&](int s) { return 1u << ((s >> 5) & 31); };
 
 #pragma unroll 1
   for (int t = 0; t < T; ++t) {
@@ -393,26 +307,7 @@ vqs_bf_kernel(const int* __restrict__ n, const float* __restrict__ sizes,
     };
 
     // 0. the next departures the stream warp recomputed for last slot's rows
-#pragma unroll 1
-    for (int w = 0; w < NW; ++w) {
-      unsigned m = recf[w * 32 + lane];
-      recf[w * 32 + lane] = 0u;
-      while (m) {
-        const int l = (w * 32 + __ffs(m) - 1) * 32 + lane;
-        m &= m - 1;
-        const int nd = rec_nd[l], cur = next_dep[l];
-        unsigned* dm = due + static_cast<size_t>(l) * KW;
-        const unsigned* rm = rec_mask + static_cast<size_t>(l) * KW;
-        if (nd < cur) {
-          next_dep[l] = nd;
-#pragma unroll 1
-          for (int kw = 0; kw < KW; ++kw) dm[kw] = rm[kw];
-        } else if (nd == cur && nd != kInfSlot) {
-#pragma unroll 1
-          for (int kw = 0; kw < KW; ++kw) dm[kw] |= rm[kw];
-        }
-      }
-    }
+    merge_departures(recf, rec_nd, rec_mask, next_dep, due, NW, KW);
 
     // 1. arrivals: the r-th arrival of a type takes the r-th empty slot of
     // its bucket (a lane per bucket finds them)
@@ -577,12 +472,7 @@ vqs_bf_kernel(const int* __restrict__ n, const float* __restrict__ sizes,
         // the renewal candidate, the first max-weight row of K_RED (Eq. 8),
         // and the non-empty queues
         const unsigned hx = __ballot_sync(repro::kFullMask, qcnt > 0);
-        int bw = -1, bc = kNone;
-        if (c_lo < C) { bw = w_lo; bc = c_lo; }
-        if (c_hi < C && w_hi > bw) { bw = w_hi; bc = c_hi; }
-        unsigned best;
-        const int r = repro::warp_argmax_key(static_cast<unsigned>(bw + 1), bc, best);
-        const int rc = rowcfg[r];
+        const int rc = rowcfg[mw.best(C)];
         const int r_k1 = rc & 1, r_js = ((rc >> 1) & 63) - 1, r_ks = rc >> 7;
 
         // pass 2: touch every pending server up to the placer (renewal at

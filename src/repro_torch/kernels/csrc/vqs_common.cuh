@@ -1,20 +1,17 @@
-// Pieces shared by the VQS-family kernels (vqs.cu, vqs_bf.cu).
+// Pieces shared by the scheduler kernels of the VQS family (vqs.cu,
+// vqs_bf.cu) and, for the grid arithmetic, the bitmask words and the
+// departure bookkeeping, by bfjs_mr.cu.
 //
-// Both kernels simulate one ensemble member per thread block over the whole
-// horizon, on the int32 RES = 2^16 size grid of the engines, with the
-// constants, flag bits and grid arithmetic below.  vqs.cu splits the
-// member's state by `split_layout`:
-//   * shared memory: the K_RED table, per-server aggregates that every
-//     work-list step reads (next departure slot, occupancy, resident jobs,
-//     configuration, flag bits, 32-bit subscription mask), per-queue
-//     counters, the slot's arrival lanes, and the ring planes when they fit;
-//   * a per-member global workspace (allocated by the wrapper): the (L, K)
-//     job planes — sizes and departure slots as int32, VQ types as int8 —
-//     which are touched only by departures and placements, and the ring
-//     planes when they do not fit beside the rest.
-// vqs_bf.cu lays its own state out (`vqs_bf_layout`).  The Python side reads
-// either layout through the exported `<name>_shared_bytes` /
-// `<name>_workspace_bytes`; it is written only in the kernels' sources.
+// Each kernel simulates one ensemble member per thread block over the whole
+// horizon on the int32 RES = 2^16 size grid of the engines, with a decision
+// warp that makes every decision and a stream warp that loads the next slot
+// and keeps bookkeeping off the decision chain.  Lane i of a warp owns
+// servers i, i + 32, ...: a per-lane bitmask word w holds, in bit b, server
+// (32 w + b) * 32 + i, so a lane's set bits are its servers in index order
+// and bit b over all lanes is the round of 32 servers starting at
+// (32 w + b) * 32.  Each kernel lays its own state out
+// (`<name>_layout`); the Python side reads it through the exported
+// `<name>_shared_bytes` / `<name>_workspace_bytes`.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,7 +21,6 @@
 
 namespace vqsk {
 
-constexpr int kThreads = 512;
 constexpr int kMaxJ = 16;  // 2J queues fit one 32-bit mask; 2^J <= RES
 constexpr int kInfSlot = 0x7fffffff;
 constexpr int kInf32 = 0x7fffffff;
@@ -33,63 +29,27 @@ constexpr int kCap = kRes;                     // unit server capacity
 constexpr int kReserve = (2 * kRes + 1) / 3;   // the VQ_1 reservation
 constexpr size_t kSmemLimit = 232448;          // dynamic + static, per block
 constexpr size_t kStaticSmem = 1024;           // reduction/broadcast scratch
+constexpr int kEffBits = 17;                   // effective sizes are <= RES = 2^16
+constexpr int kEffMask = (1 << kEffBits) - 1;
 
-// Per-server flag bits.  The first three persist across slots; the rest are
-// rebuilt every slot.
+// Per-server flag bits, rebuilt for the servers of each slot's visit set
+// (kK1 and kHasCfg persist across slots).
 enum Flag : int {
   kK1 = 1,          // active configuration has k_1 > 0
   kHasCfg = 2,      // server has a configuration
-  kInEmpty = 4,     // the scheduler's _empty membership
   kFreed = 8,       // a job left this slot
   kEmptyNow = 16,   // no resident job after this slot's departures
-  kVisit = 32,      // in this slot's visit set
   kRenew = 64,      // visit needs a configuration renewal at first touch
   kTouched = 128,   // reached by the work list this slot
-  kAdvanced = 256,  // served (or passed) and done for this slot
-};
-constexpr int kSlotFlags = kK1 | kHasCfg | kInEmpty;
-
-struct Layout {
-  bool rings_in_smem;
-  size_t shared_bytes;     // dynamic shared memory of one block
-  size_t workspace_bytes;  // global workspace of one member (16-aligned)
 };
 
-// Rings join the fixed part in shared memory when both fit beside the
-// static scratch; the workspace holds srv, dep (int32), the rings when they
-// do not fit, then vqof (int8).  `shared_bytes` is the dynamic part; the
-// exported `<name>_shared_bytes` adds the static scratch, which is what the
-// per-block limit is checked against.
-__host__ inline Layout split_layout(size_t fixed_words, size_t ring_words, int L, int K) {
-  Layout lay;
-  const size_t both = 4 * (fixed_words + ring_words);
-  lay.rings_in_smem = both + kStaticSmem <= kSmemLimit;
-  lay.shared_bytes = lay.rings_in_smem ? both : 4 * fixed_words;
-  const size_t lk = static_cast<size_t>(L) * K;
-  const size_t ws = 8 * lk + (lay.rings_in_smem ? 0 : 4 * ring_words) + lk;
-  lay.workspace_bytes = (ws + 15) / 16 * 16;
-  return lay;
-}
+// Bitmask words of a row of K job slots, and of one lane's servers.
+__host__ __device__ inline int row_words(int K) { return (K + 31) / 32; }
+__host__ __device__ inline int lane_words(int L) { return ((L + 31) / 32 + 31) / 32; }
 
-// The member's (L, K) planes and, when they live in global memory, its
-// rings, carved from the workspace in the order of `split_layout`.
-struct JobPlanes {
-  int* srv;
-  int* dep;
-  int* rings;  // nullptr when the rings are in shared memory
-  signed char* vqof;
-};
-
-__device__ inline JobPlanes job_planes(unsigned char* ws, int L, int K, size_t ring_words,
-                                       bool rings_in_smem) {
-  const size_t lk = static_cast<size_t>(L) * K;
-  JobPlanes p;
-  p.srv = reinterpret_cast<int*>(ws);
-  p.dep = p.srv + lk;
-  p.rings = rings_in_smem ? nullptr : p.dep + lk;
-  p.vqof = reinterpret_cast<signed char*>(p.dep + lk + (rings_in_smem ? 0 : ring_words));
-  return p;
-}
+// The word (of a (words, 32) per-lane mask) and the bit of server s.
+__device__ __forceinline__ int mask_at(int s) { return ((s >> 5) >> 5) * 32 + (s & 31); }
+__device__ __forceinline__ unsigned mask_bit(int s) { return 1u << ((s >> 5) & 31); }
 
 // max(round(size * RES), 1) in float32, round half to even — the engines'
 // in-loop quantization.
@@ -118,112 +78,144 @@ __device__ __forceinline__ int add_wrap(int t, int d) {
   return static_cast<int>(static_cast<unsigned>(t) + static_cast<unsigned>(d));
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(repro::kFullMask, v, off);
-  return v;
-}
+// Words of one slot's classified arrivals (`classify_slot`).
+__host__ __device__ inline int arrival_words(int A, int nvq) { return 4 * A + 2 * nvq; }
 
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(repro::kFullMask, v, off));
-  return v;
-}
-
-// Row of K_RED maximizing <k, qcnt> (paper Eq. 8), first row on ties —
-// called by a whole warp, result in every lane.  Lane i weighs rows i,
-// i + 32, ... in order, keeping the first best.
-__device__ __forceinline__ int max_weight_row(const int* confs, const int* qcnt, int C, int nvq) {
-  const int lane = threadIdx.x & 31;
-  int w = -kInf32 - 1, i = kInf32;
-  for (int c = lane; c < C; c += 32) {
-    int wc = 0;
-    for (int j = 0; j < nvq; ++j) wc += confs[c * nvq + j] * qcnt[j];
-    if (wc > w) {
-      w = wc;
-      i = c;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ow = __shfl_xor_sync(repro::kFullMask, w, off);
-    const int oi = __shfl_xor_sync(repro::kFullMask, i, off);
-    if (ow > w || (ow == w && oi < i)) {
-      w = ow;
-      i = oi;
-    }
-  }
-  return i;
-}
-
-// j* of a K_RED row: the first nonzero type other than 1, or -1.
-__device__ __forceinline__ int first_other_type(const int* row, int nvq) {
-  for (int j = 0; j < nvq; ++j) {
-    if (j != 1 && row[j] > 0) return j;
-  }
-  return -1;
-}
-
-// This slot's arrivals, a lane per thread: VQ type (-1 for lanes past
-// n_t), effective size, and duration from the last A of the row's D lanes.
-__device__ inline void classify_arrivals(const float* sizes_t, const int* durs_t, int n_t, int A,
-                                         int D, int J, int* a_vq, int* a_eff, int* a_dur) {
-  for (int a = threadIdx.x; a < A; a += blockDim.x) {
+// Stream warp: slot u's arrivals classified into b (arrival_words words):
+// type (-1 past n_u), effective size, duration (the last A of the row's D
+// lanes), rank among the slot's arrivals of its type; per type, the count
+// and the arrivals of lower types.
+__device__ inline void classify_slot(int* b, int n_u, const float* sizes_u, const int* durs_u,
+                                     int A, int D, int J) {
+  const int lane = threadIdx.x & 31, nvq = 2 * J;
+  int *bvq = b, *beff = b + A, *bdur = b + 2 * A, *brank = b + 3 * A;
+  int *bcnt = b + 4 * A, *boff = bcnt + nvq;
+  for (int a = lane; a < A; a += 32) {
     int v = -1, e = 0, d = 0;
-    if (a < n_t) {
-      const int g = to_grid(sizes_t[a]);
-      v = classify(g, J);
-      e = effective(g, v, J);
-      d = durs_t[D - A + a];
+    if (a < n_u) {
+      const int gq = to_grid(sizes_u[a]);
+      v = classify(gq, J);
+      e = effective(gq, v, J);
+      d = durs_u[D - A + a];
     }
-    a_vq[a] = v;
-    a_eff[a] = e;
-    a_dur[a] = d;
+    bvq[a] = v;
+    beff[a] = e;
+    bdur[a] = d;
   }
-}
-
-// The visit set: freed servers, woken subscribers (their subscriptions to
-// the arrived types are consumed), and _empty members while work is
-// queued.  A visit renews the configuration at first touch when the server
-// emptied this slot or never had one.
-__device__ inline void visit_pass(int* flags, unsigned* want, int L, unsigned arrived, int qtot) {
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    int f = flags[l];
-    const unsigned w = want[l];
-    want[l] = w & ~arrived;
-    if ((f & kFreed) || (w & arrived) || ((f & kInEmpty) && qtot > 0)) {
-      f |= kVisit;
-      if ((f & kEmptyNow) || !(f & kHasCfg)) f |= kRenew;
+  __syncwarp();
+  for (int a = lane; a < A; a += 32) {
+    const int v = bvq[a];
+    int r = 0;
+    for (int c = 0; c < a; ++c) r += bvq[c] == v;
+    brank[a] = r;
+  }
+  for (int j = lane; j < nvq; j += 32) {
+    int c = 0, o = 0;
+    for (int a = 0; a < A; ++a) {
+      const int v = bvq[a];
+      c += v == j;
+      o += v >= 0 && v < j;
     }
-    flags[l] = f;
+    bcnt[j] = c;
+    boff[j] = o;
   }
 }
 
-// 1 when a visited server was neither served nor passed this slot (the
-// step bound cut the slot short), in every thread.
-__device__ inline int any_pending(const int* flags, int L, int* red) {
-  int pend = 0;
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    const int f = flags[l];
-    if ((f & kVisit) && !(f & kAdvanced)) pend = 1;
+// Stream warp: the next departure slot and due slots of each row in `recf`
+// (rows that lost jobs at slot t), over the jobs it kept (`rec_mask`, whose
+// departure slots `dep` were written before t); the result goes to rec_nd
+// and rec_mask, which the decision warp merges (`merge_departures`).
+__device__ inline void recompute_departures(const unsigned* recf, const int* dep,
+                                            unsigned* rec_mask, int* rec_nd, int NW, int K,
+                                            int t) {
+  const int lane = threadIdx.x & 31, KW = row_words(K);
+  for (int w = 0; w < NW; ++w) {
+    unsigned m = recf[w * 32 + lane];
+    while (m) {
+      const int l = (w * 32 + __ffs(m) - 1) * 32 + lane;
+      m &= m - 1;
+      const int* drow = dep + static_cast<size_t>(l) * K;
+      unsigned* rm = rec_mask + static_cast<size_t>(l) * KW;
+      int nd = kInfSlot;
+      for (int kw = 0; kw < KW; ++kw) {
+        for (unsigned b = rm[kw]; b; b &= b - 1) {
+          const int dk = drow[kw * 32 + __ffs(b) - 1];
+          if (dk > t && dk < nd) nd = dk;
+        }
+      }
+      for (int kw = 0; kw < KW; ++kw) {
+        unsigned out = 0u;
+        for (unsigned b = rm[kw]; b; b &= b - 1) {
+          const int k = __ffs(b) - 1;
+          if (nd != kInfSlot && drow[kw * 32 + k] == nd) out |= 1u << k;
+        }
+        rm[kw] = out;
+      }
+      rec_nd[l] = nd;
+    }
   }
-  return repro::block_reduce(pend, red, repro::MaxI());
 }
 
-// The slot's outputs (thread 0 writes): queued jobs, occupancy as the
-// float of the int32 grid sum over RES, departures.
-__device__ inline void write_slot(const int* occ, const int* qcnt, int L, int nvq, int n_dep,
-                                  int* red, int* qlen_t, float* occ_t, int* ndep_t) {
-  int my_occ = 0;
-  for (int l = threadIdx.x; l < L; l += blockDim.x) my_occ += occ[l];
-  const int occ_tot = repro::block_reduce(my_occ, red, repro::SumI());
-  if (threadIdx.x == 0) {
-    int q = 0;
-    for (int j = 0; j < nvq; ++j) q += qcnt[j];
-    *qlen_t = q;
-    *occ_t = __int2float_rn(occ_tot) / 65536.f;
-    *ndep_t = n_dep;
+// Decision warp, at the start of a slot: the recomputed next departures of
+// last slot's rows join what placements set meanwhile; `recf` is cleared.
+__device__ inline void merge_departures(unsigned* recf, const int* rec_nd,
+                                        const unsigned* rec_mask, int* next_dep, unsigned* due,
+                                        int NW, int KW) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int w = 0; w < NW; ++w) {
+    unsigned m = recf[w * 32 + lane];
+    recf[w * 32 + lane] = 0u;
+    while (m) {
+      const int l = (w * 32 + __ffs(m) - 1) * 32 + lane;
+      m &= m - 1;
+      const int nd = rec_nd[l], cur = next_dep[l];
+      unsigned* dm = due + static_cast<size_t>(l) * KW;
+      const unsigned* rm = rec_mask + static_cast<size_t>(l) * KW;
+      if (nd < cur) {
+        next_dep[l] = nd;
+#pragma unroll 1
+        for (int kw = 0; kw < KW; ++kw) dm[kw] = rm[kw];
+      } else if (nd == cur && nd != kInfSlot) {
+#pragma unroll 1
+        for (int kw = 0; kw < KW; ++kw) dm[kw] |= rm[kw];
+      }
+    }
   }
 }
+
+// Row c of K_RED as a renewal: k_1 > 0 (bit 0), j* + 1 (bits 1-6; 0 when
+// the row has no type but 1), k_{j*} (bits 7 and up) — j* is the first
+// nonzero type other than 1.
+__device__ inline int decode_row(const int* row, int nvq) {
+  int js = -1;
+  for (int j = 0; j < nvq && js < 0; ++j) {
+    if (j != 1 && row[j] > 0) js = j;
+  }
+  return (row[1] > 0) | ((js + 1) << 1) | ((js >= 0 ? row[js] : 0) << 7);
+}
+
+// The max-weight rows of K_RED (paper Eq. 8) kept by the decision warp:
+// lane i holds the weights <k_c, qcnt> of rows c = i and i + 32 (C = 4J - 4
+// <= 60), moved by every change of a queue count; `best` is the first row
+// of the greatest weight.
+struct MaxWeight {
+  int w_lo = 0, w_hi = 0;
+
+  __device__ void move(const int* confs, int C, int nvq, int j, int delta) {
+    const int lane = threadIdx.x & 31;
+    if (lane < C) w_lo += delta * confs[lane * nvq + j];
+    if (lane + 32 < C) w_hi += delta * confs[(lane + 32) * nvq + j];
+  }
+
+  __device__ int best(int C) const {
+    const int lane = threadIdx.x & 31;
+    int bw = -1, bc = 0x7fffffff;
+    if (lane < C) { bw = w_lo; bc = lane; }
+    if (lane + 32 < C && w_hi > bw) { bw = w_hi; bc = lane + 32; }
+    unsigned top;
+    return repro::warp_argmax_key(static_cast<unsigned>(bw + 1), bc, top);
+  }
+};
 
 }  // namespace vqsk

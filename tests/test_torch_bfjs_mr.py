@@ -22,6 +22,7 @@ from repro.core.engine.bfjs_mr import \
     run_bfjs_mr_streams as j_run  # noqa: E402
 from repro.core.multi_resource import \
     alignment_scores as j_alignment_scores  # noqa: E402
+from repro.kernels.bfjs_mr.bfjs_mr import bfjs_mr_pallas  # noqa: E402
 from repro_torch.convert import (bfjs_mr_state_from_numpy,  # noqa: E402
                                  result_to_numpy, streams_from_numpy)
 from repro_torch.core.engine import (Workload,  # noqa: E402
@@ -145,6 +146,52 @@ def test_reference_engine_matches_jax_reference(case):
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(scan, f), getattr(got, f),
                                       err_msg=f)
+
+
+# (R, L, K, Qcap, A_max, T, lam, mu, sizes, seed): R = 1 to 4, a stream
+# whose queue builds up (BF-S refills from a deep queue), and a Qcap small
+# enough to drop arrivals.  Every case keeps truncated == 0: the Pallas
+# kernel pays the step bound, which the scan-engine comparison above covers.
+PALLAS_CASES = {
+    "r1": (1, 4, 8, 48, 5, 100, 0.5, 0.05, (0.05, 0.6), 5),
+    "r2": (2, 4, 8, 48, 5, 100, 0.35, 0.05, (0.05, 0.5), 1),
+    "r3": (3, 4, 8, 48, 5, 100, 0.3, 0.05, (0.05, 0.5), 2),
+    "r4": (4, 5, 8, 48, 5, 100, 0.5, 0.05, (0.05, 0.4), 3),
+    "queueing": (2, 3, 16, 64, 6, 120, 1.0, 0.03, (0.2, 0.7), 9),
+    "drops": (2, 3, 16, 8, 6, 120, 3.0, 0.02, (0.1, 0.6), 3),
+}
+
+
+@pytest.mark.parametrize("case", list(PALLAS_CASES))
+def test_plain_version_matches_pallas(case):
+    """The kernel wrapper on CPU tensors (its plain version) == the JAX
+    Pallas kernel in interpret mode, on every field."""
+    R, L, K, Qcap, A_max, T, lam, mu, sizes, seed = PALLAS_CASES[case]
+    sts = _jax_streams(2, R, L, K, A_max, T, lam, mu, *sizes, seed)
+    n, sz, durs = (np.stack([np.asarray(getattr(s, f)) for s in sts])
+                   for f in ("n", "sizes", "durs"))
+    if R == 1:
+        sz = sz[..., None]
+    kw = dict(L=L, K=K, Qcap=Qcap, A_max=A_max, work_steps=A_max + 8,
+              capacity=(1.0,) * R)
+    qlen, occ, ndep, dropped, trunc = bfjs_mr_pallas(n, sz, durs,
+                                                     interpret=True, **kw)
+    before = bfjs_mr_kernel.launches.count
+    port = result_to_numpy(bfjs_mr_kernel.bfjs_mr_cuda(
+        *(torch.from_numpy(np.asarray(x)) for x in (n, sz, durs)), **kw))
+    assert bfjs_mr_kernel.launches.count == before  # CPU: plain version
+    np.testing.assert_array_equal(port.queue_len, np.asarray(qlen))
+    np.testing.assert_array_equal(port.occupancy, np.asarray(occ))
+    np.testing.assert_array_equal(port.departed,
+                                  np.cumsum(np.asarray(ndep), axis=1))
+    np.testing.assert_array_equal(port.dropped, np.asarray(dropped))
+    np.testing.assert_array_equal(port.truncated, np.asarray(trunc))
+    assert port.truncated.sum() == 0
+    assert port.departed[:, -1].min() > 0
+    if case == "queueing":
+        assert port.queue_len.mean() > 1
+    if case == "drops":
+        assert port.dropped.sum() > 0
 
 
 def test_google_like_trace_uncollapsed_matches_jax():

@@ -224,6 +224,51 @@ def test_vqs_bf_kernel_counts_past_a_byte(cuda):
     assert int((state.srv > 0).sum(-1).max()) == 256
 
 
+# (G, J, L, K, Qcap, A_max, T, lam, mu, W, sizes): the edges of the VQS
+# kernel's walk — two mask words a lane (L > 1024, not a multiple of 32),
+# two bitmask words a row (K > 32, a drain of 40 placing past a word), the
+# packed job plane in the workspace (K = 64 at L = 1000), J = 16 (32 rings,
+# 60 K_RED rows), more arrival lanes than a warp with a short work list,
+# departures every slot, the full-width shape at load 1.0, where the rings
+# grow deep within 200 slots, and a cluster whose row bookkeeping lives in
+# the workspace (L = 9000)
+VQS_EDGE_CASES = [
+    pytest.param(2, 4, 1100, 8, 256, 16, 60, 40.0, 0.05, None, (0.05, 0.9),
+                 {}, id="two-mask-words"),
+    pytest.param(2, 6, 8, 48, 256, 16, 150, 12.0, 0.02, None, (0.01, 0.05),
+                 {"drain": 40}, id="two-row-words"),
+    pytest.param(2, 4, 1000, 64, 1024, 48, 100, 20.0, 0.02, None,
+                 (0.05, 0.9), {}, id="job-plane-in-workspace"),
+    pytest.param(2, 16, 8, 16, 64, 8, 120, 3.0, 0.02, None, (0.001, 0.9),
+                 {}, id="j16"),
+    pytest.param(2, 4, 40, 8, 512, 40, 150, 30.0, 0.05, 20, (0.05, 0.9),
+                 {}, id="wide-arrivals-truncate"),
+    pytest.param(2, 4, 50, 6, 256, 8, 200, 10.0, 0.95, None, (0.05, 0.9),
+                 {}, id="departures-every-slot"),
+    pytest.param(2, 4, 1000, 16, 1024, 48, 200, 20.0, 0.01, None, (0.1, 0.9),
+                 {}, id="full-width-load-1.0"),
+    pytest.param(2, 4, 9000, 16, 256, 32, 40, 30.0, 0.05, None, (0.1, 0.9),
+                 {}, id="bookkeeping-in-workspace"),
+]
+
+
+@pytest.mark.parametrize("G,J,L,K,Qcap,A_max,T,lam,mu,W,sizes,extra",
+                         VQS_EDGE_CASES)
+def test_vqs_kernel_equals_plain_at_its_edges(cuda, G, J, L, K, Qcap, A_max,
+                                              T, lam, mu, W, sizes, extra):
+    kw = dict(drain=min(K, 1 << J, 16))
+    kw.update(extra)
+    got = _vqs_case("vqs", vqs_ref, cuda, G, J, L, K, Qcap, A_max, T, lam,
+                    mu, W, sizes=sizes, **kw)
+    if (W is not None and W < A_max) or K == 48:  # K = 48: K-overflow
+        assert int(got.truncated.sum()) > 0
+    if mu > 0.9:
+        ndep = torch.diff(got.departed, dim=1)
+        assert bool((ndep[:, 10:] > 0).all())
+    if L == 1000 and K == 16:
+        assert float(got.queue_len.double().mean()) > 1
+
+
 @pytest.mark.parametrize("G,J,L,K,Qcap,A_max,T,lam,mu,W", VQS_CASES)
 def test_vqs_bf_kernel_equals_plain(cuda, G, J, L, K, Qcap, A_max, T, lam,
                                     mu, W):
@@ -371,18 +416,114 @@ def test_bfjs_mr_kernel_equals_plain(cuda, G, R, L, K, Qcap, A_max, T, lam,
         assert int(got.dropped.sum()) > 0
 
 
+# (G, R, L, K, Qcap, A_max, T, lam, mu, sizes, W): the edges of the
+# bfjs_mr kernel's design — two mask words a lane (L > 1024, not a multiple
+# of 32), two bitmask words a row (K > 32), the demand plane in the
+# workspace (R = 3 and 4 at L = 1000), a K-full BF-S target that blocks the
+# pass with a short work list (the saturation check then tests the
+# unblocked arrivals), a starved list whose BF-S walk is cut (the
+# saturation check tests the freed servers left), and the full-width shape
+# with a queue in every slot, and a cluster whose row bookkeeping lives in
+# the workspace (L = 9000)
+BFJS_MR_EDGE_CASES = [
+    pytest.param(2, 2, 1100, 8, 256, 16, 60, 40.0, 0.05, (0.05, 0.9), None,
+                 id="two-mask-words"),
+    pytest.param(2, 2, 8, 48, 128, 16, 150, 12.0, 0.02, (0.005, 0.02), None,
+                 id="two-row-words"),
+    pytest.param(2, 3, 1000, 16, 1024, 48, 100, 16.0, 0.01, (0.1, 0.9),
+                 None, id="r3-full-width"),
+    pytest.param(2, 4, 1000, 16, 1024, 48, 100, 12.0, 0.01, (0.1, 0.7),
+                 None, id="r4-full-width"),
+    pytest.param(2, 2, 3, 2, 256, 6, 300, 1.2, 0.1, (0.05, 0.25), 4,
+                 id="k-full-blocks-short-list"),
+    pytest.param(2, 2, 40, 8, 512, 40, 150, 30.0, 0.05, (0.05, 0.5), 6,
+                 id="starved-walk"),
+    pytest.param(2, 2, 1000, 16, 1024, 48, 200, 24.0, 0.01, (0.2, 0.9),
+                 None, id="full-width-queueing"),
+    pytest.param(2, 2, 9000, 16, 256, 32, 40, 30.0, 0.05, (0.1, 0.9), None,
+                 id="bookkeeping-in-workspace"),
+]
+
+
+@pytest.mark.parametrize("G,R,L,K,Qcap,A_max,T,lam,mu,sizes,W",
+                         BFJS_MR_EDGE_CASES)
+def test_bfjs_mr_kernel_equals_plain_at_its_edges(cuda, G, R, L, K, Qcap,
+                                                  A_max, T, lam, mu, sizes,
+                                                  W):
+    st = ensemble_streams(range(G), lam, mu, _vec_sampler(*sizes, R), L=L,
+                          K=K, A_max=A_max, horizon=T, device=cuda,
+                          num_resources=R)
+    kw = dict(L=L, K=K, Qcap=Qcap, A_max=A_max,
+              work_steps=A_max + 4 if W is None else W, capacity=(1.0,) * R)
+    before = bfjs_mr_kernel.launches.count
+    got = bfjs_mr_kernel.bfjs_mr_cuda(st.n, st.sizes, st.durs, **kw)
+    torch.cuda.synchronize()
+    assert bfjs_mr_kernel.launches.count == before + 1
+    want = bfjs_mr_ref(st.n, st.sizes, st.durs, **kw)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if W is not None or K == 48:  # K = 48: jobs outnumber a row's slots
+        assert int(got.truncated.sum()) > 0
+    if lam == 24.0:
+        assert float(got.queue_len.double().mean()) > 1
+
+
+@pytest.mark.parametrize("policy", ["vqs", "bfjs-mr"])
+def test_kernels_wrap_departure_slots(cuda, policy):
+    """Durations near 2^31 (trace-width streams, D = A_max): t + d wraps in
+    int32 (the job never leaves) or lands on INF_SLOT itself (bfjs-mr keeps
+    that slot empty, as the engines do); the kernels follow the plain
+    version."""
+    from repro_torch.core.engine import run_policy_streams
+    rng = np.random.default_rng(11)
+    n_jobs, T = 500, 200
+    slots = np.sort(rng.integers(0, T, n_jobs))
+    durs = rng.integers(1, 60, n_jobs)
+    far = rng.random(n_jobs) < 0.15
+    durs[far] = 2 ** 31 - 1 - slots[far]          # departure slot INF_SLOT
+    wrap = (rng.random(n_jobs) < 0.1) & ~far & (slots > 3)
+    durs[wrap] = 2 ** 31 - 2                       # t + d wraps below 0
+    R = 2 if policy == "bfjs-mr" else 1
+    sizes = rng.uniform(0.05, 0.4, (n_jobs, R) if R > 1 else n_jobs)
+    st = streams_from_trace(slots, sizes, durs, horizon=T, device=cuda)
+    A = int(st.sizes.shape[1])
+    kw = dict(L=6, K=8, Qcap=256, A_max=A)
+    if policy == "vqs":
+        kw["J"] = 3
+    mod = bfjs_mr_kernel if policy == "bfjs-mr" else vqs_kernel
+    before = mod.launches.count
+    got = run_policy_streams(st, policy=policy, engine="cuda", strict=True,
+                             **kw)
+    assert mod.launches.count == before + 1
+    want = run_policy_streams(st, policy=policy, engine="scan", **kw)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert int(got.departed[-1]) > 0
+
+
 def test_bfjs_mr_kernel_layout(cuda):
-    """The slice's shape keeps the queue in shared memory; a large Qcap
-    moves it to the workspace; both pass the gate."""
+    """The slice's shape keeps the queue and the (L, K, R) demand plane in
+    shared memory and only the (L, K) departure slots in the workspace; R =
+    4 moves the demand plane (4 words a job) to the workspace; a large Qcap
+    moves the queue there; all pass the gate."""
     from repro_torch.kernels.bfjs_mr.ops import bfjs_mr_shared_bytes
     from repro_torch.kernels.common import SMEM_LIMIT_BYTES
     ws = bfjs_mr_kernel.load().bfjs_mr_workspace_bytes
-    planes = 4 * 1000 * 16 * 3  # the (L, K, R) and (L, K) planes
-    assert ws(1000, 16, 1024, 48, 2) == planes
-    assert ws(16, 16, 40000, 8, 2) == 4 * 16 * 16 * 3 + 4 * 4 * 40000
-    for Qcap in (1024, 40000):
-        assert bfjs_mr_shared_bytes(1000, 16, Qcap, 48, 2) \
+    dep = 4 * 1000 * 16  # the (L, K) departure slots
+    assert ws(1000, 16, 1024, 48, 2) == dep
+    assert ws(1000, 16, 1024, 48, 4) == 4 * 1000 * 16 * 4 + dep
+    # queue: (Qcap, 2) demand vectors, durations and seq ids
+    assert ws(16, 16, 40000, 8, 2) == 4 * 16 * 16 + 4 * 4 * 40000
+    for Qcap, R in ((1024, 2), (40000, 2), (1024, 3), (1024, 4)):
+        assert bfjs_mr_shared_bytes(1000, 16, Qcap, 48, R) \
             <= SMEM_LIMIT_BYTES
+    # the largest clusters the 512-thread kernel took before its redesign
+    # (R + 3 words a server in shared memory) still pass: the per-row
+    # bookkeeping moves to the workspace
+    for L, R in ((14000, 1), (11500, 2), (9600, 3), (8200, 4)):
+        assert bfjs_mr_shared_bytes(L, 16, 1024, 48, R) <= SMEM_LIMIT_BYTES
+    # the (L, K, 2) and (L, K) planes, then 4 bookkeeping words a server
+    assert ws(11500, 16, 1024, 48, 2) == 4 * 11500 * 16 * 3 + 4 * 11500 * 4
 
 
 def test_bfjs_mr_kernel_takes_trace_width_durations(cuda):

@@ -150,12 +150,21 @@ def test_scan_engine_returns_the_jax_carry():
                                       err_msg=name)
 
 
-def test_plain_version_matches_pallas():
+# (G, J, L, K, Qcap, A_max, T, lam, mu, seed): a windowed grid, J = 2, a
+# stream whose queues build up (packing bursts from deep rings), and J = 7
+# (14 rings, 24 K_RED rows)
+@pytest.mark.parametrize("G,J,L,K,Qcap,A_max,T,lam,mu,seed", [
+    pytest.param(2, 3, 4, 8, 48, 5, 120, 1.0, 0.03, 9, id="windowed"),
+    pytest.param(2, 2, 4, 8, 48, 5, 120, 1.0, 0.03, 4, id="j2"),
+    pytest.param(2, 3, 3, 8, 64, 6, 120, 2.5, 0.03, 5, id="queueing"),
+    pytest.param(2, 7, 4, 16, 48, 5, 120, 1.0, 0.03, 6, id="j7"),
+])
+def test_plain_version_matches_pallas(G, J, L, K, Qcap, A_max, T, lam, mu,
+                                      seed):
     """The kernel wrapper on CPU tensors (its plain version) == the JAX
     Pallas kernel in interpret mode, as tests/test_kernels.py runs it."""
     from repro.core.engine import SchedStreams as JStreams
-    G, J, L, K, Qcap, A_max, T = 2, 3, 4, 8, 48, 5, 120
-    sts = _jax_streams(G, L, K, A_max, T)
+    sts = _jax_streams(G, L, K, A_max, T, lam=lam, mu=mu, seed=seed)
     n, sizes, durs = _stack(sts)
     ref = j_vqs_simulate(JStreams(n, sizes, durs), J=J, L=L, K=K, Qcap=Qcap,
                          A_max=A_max, window=60)
@@ -168,6 +177,9 @@ def test_plain_version_matches_pallas():
         np.testing.assert_array_equal(getattr(port, f),
                                       np.asarray(getattr(ref, f)),
                                       err_msg=f)
+    assert port.departed[:, -1].min() > 0
+    if lam > 2:
+        assert port.queue_len.mean() > 1
 
 
 def test_server_slot_overflow_is_counted():
@@ -249,15 +261,22 @@ def test_cuda_engine_on_cpu_and_its_gate():
 @pytest.mark.cuda
 def test_scratch_bytes_fit_the_slice_and_fig5_shapes():
     """The built kernel's shared memory passes the gate at the slice's
-    shape (rings in shared memory) and at J=7 with Qcap up to 4096 (rings
-    in the global workspace)."""
+    shape (rings and the packed job plane in shared memory, only the (L, K)
+    departure slots in the workspace) and at J=7 with Qcap up to 4096 (the
+    rings in the workspace)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the layout is read from the "
                     "built kernel")
     from repro_torch.kernels.common import SMEM_LIMIT_BYTES
     ws = vqs_kernel.load("vqs").vqs_workspace_bytes
-    jobs = -(-9 * 1000 * 16 // 16) * 16  # the (L, K) planes alone
-    assert ws(4, 1000, 16, 1024, 48) == jobs
+    dep = 4 * 1000 * 16  # the (L, K) departure slots
+    assert ws(4, 1000, 16, 1024, 48) == dep
     for J, Qcap in ((4, 1024), (7, 1024), (7, 4096), (4, 4096)):
         assert vqs_scratch_bytes(J, 1000, 16, Qcap, 48) <= SMEM_LIMIT_BYTES
-    assert ws(7, 1000, 16, 4096, 48) > jobs
+    # sizes and durations of 14 rings of 4096
+    assert ws(7, 1000, 16, 4096, 48) == dep + 4 * 2 * 14 * 4096
+    # the largest clusters the 512-thread kernel took before its redesign
+    # (7 words a server in shared memory) still pass: the per-row
+    # bookkeeping moves to the workspace
+    for J, L in ((4, 8200), (16, 7900)):
+        assert vqs_scratch_bytes(J, L, 16, 1024, 48) <= SMEM_LIMIT_BYTES

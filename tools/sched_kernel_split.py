@@ -1,27 +1,29 @@
 #!/usr/bin/env python3
-"""Time the bfjs and vqs_bf scheduler kernels at the path shapes, in turns,
-and split each slot's time by phase.
+"""Time the scheduler kernels at the path shapes, in turns, and split each
+slot's time by phase.
 
     python3 tools/sched_kernel_split.py --src DIR[:TAG] [--src DIR2:TAG2 ...]
-        [--which bfjs,vqs_bf,vqs_bf16] [--turns 2] [--prof]
+        [--which bfjs,vqs_bf,vqs_bf16,bfjs_mr,vqs,vqs16] [--turns 2] [--prof]
 
-Each DIR holds ``bfjs.cu`` and ``vqs_bf.cu`` with the headers they include:
-the port's ``src/repro_torch/kernels/csrc``, or an older revision's copy
-(``git show REV:src/repro_torch/kernels/csrc/bfjs.cu > DIR/bfjs.cu`` and
-so on, into a directory that ``.gitignore`` lists).  The script builds
-every source with nvcc into ``src/repro_torch/kernels/_build/split/``,
-makes the path streams on the card (128 members x 1000 servers x 1000
-slots, sizes U[0.1, 0.9], mu = 0.01, A_max = 48, W = 52; bfjs: K = 16,
-Qcap = 4096, lam = 17; vqs_bf: J = 4, Qcap = 1024, lam = 12, and lam = 16
-under ``vqs_bf16``), times each source's kernel with CUDA events (a warm-up
-launch, then the mean of 3) in turns — the sources in order, then in
-reverse — and checks that all sources give equal trajectories.
+Each DIR holds ``bfjs.cu``, ``vqs_bf.cu``, ``bfjs_mr.cu`` and ``vqs.cu``
+with the headers they include: the port's ``src/repro_torch/kernels/csrc``,
+or an older revision's copy (``git show REV:src/repro_torch/kernels/csrc/
+bfjs.cu > DIR/bfjs.cu`` and so on, into a directory that ``.gitignore``
+lists).  The script builds every source with nvcc into
+``src/repro_torch/kernels/_build/split/``, makes the path streams on the
+card (128 members x 1000 servers x 1000 slots, sizes U[0.1, 0.9] on every
+resource, mu = 0.01, K = 16, A_max = 48, W = 52; bfjs: Qcap = 4096, lam =
+17; vqs_bf and vqs: J = 4, Qcap = 1024, lam = 12, and lam = 16 under
+``vqs_bf16`` and ``vqs16``, vqs with drain 16; bfjs_mr: R = 2, Qcap = 1024,
+lam = 16), times each source's kernel with CUDA events (a warm-up launch,
+then the mean of 3) in turns — the sources in order, then in reverse — and
+checks that all sources give equal trajectories.
 
 ``--prof`` also builds a copy of each source with clock64() counters at
 its phase boundaries (written beside the builds; the sources are not
 touched) and prints, per slot and averaged over the members, the cycles of
 each phase as the block's thread 0 sees them, the cycles the second warp
-works and waits (the two-warp design), and counts of steps.  The counters
+works and waits (the two-warp designs), and counts of steps.  The counters
 add a few per cent to the kernel's time.  It needs a CUDA device and
 nvcc, and exits non-zero without them.
 """
@@ -45,6 +47,9 @@ CELLS = {  # cell: (kernel, shape, lam)
     "bfjs": ("bfjs", dict(L=1000, K=16, Qcap=4096, A=48, W=52), 17.0),
     "vqs_bf": ("vqs_bf", dict(J=4, L=1000, K=16, Qcap=1024, A=48, W=52), 12.0),
     "vqs_bf16": ("vqs_bf", dict(J=4, L=1000, K=16, Qcap=1024, A=48, W=52), 16.0),
+    "bfjs_mr": ("bfjs_mr", dict(R=2, L=1000, K=16, Qcap=1024, A=48, W=52), 16.0),
+    "vqs": ("vqs", dict(J=4, L=1000, K=16, Qcap=1024, A=48, W=52, P=16), 12.0),
+    "vqs16": ("vqs", dict(J=4, L=1000, K=16, Qcap=1024, A=48, W=52, P=16), 16.0),
 }
 
 HEAD = ('__device__ long long g_prof[4096 * 32];\n'
@@ -77,7 +82,27 @@ NAMES = {
                          8: "pop_place", 9: "bfj_pass+out", 10: "barrier_wait",
                          20: "#steps", 21: "#new_placers", 22: "#pending", 24: "warp1_work",
                          25: "warp1_wait"},
+    ("bfjs_mr", "block"): {0: "departures", 1: "enqueue", 2: "freed_list", 3: "bfs_arg",
+                           4: "bfs_place", 5: "bfj_arg", 6: "bfj_place", 7: "saturation",
+                           8: "occupancy+out", 20: "#steps", 21: "#bfs_tests",
+                           22: "#bfj_steps", 23: "#bfs_places"},
+    ("vqs", "block"): {0: "departures", 1: "classify+enqueue", 2: "visit", 3: "heads+mw_row",
+                       4: "pass1", 5: "pass2", 6: "serve", 7: "any_pending", 8: "write_slot",
+                       20: "#steps", 21: "#serves"},
+    ("bfjs_mr", "warp"): {0: "merge+departures", 1: "enqueue", 2: "minima+prefilter",
+                          3: "bfs_test", 4: "bfs_walk+place", 5: "bfj_scan", 6: "bfj_place",
+                          7: "saturation", 8: "outputs", 9: "barrier_wait", 19: "#bfj_scans",
+                          20: "#steps", 21: "#bfs_tests", 22: "#bfj_steps", 23: "#bfs_places",
+                          24: "warp1_work", 25: "warp1_wait"},
+    ("vqs", "warp"): {0: "merge+arrivals", 1: "departures+visit", 2: "config", 3: "walk",
+                      4: "prefix_fit", 5: "place", 6: "outputs", 7: "barrier_wait",
+                      20: "#steps", 21: "#serves", 22: "#pending",
+                      24: "warp1_work", 25: "warp1_wait"},
 }
+
+# The two-warp designs' stream warps: cycles of work and of waiting.
+STREAM_BFJS_MR = ('    for (int t = 0; t < T; ++t) {\n      if (t + 1 < T) fetch(t + 1);\n      repro::named_barrier(kDepartBarrier, kPairThreads);\n      vqsk::recompute_departures(recf, dep, rec_mask, rec_nd, NW, K, t);\n      repro::named_barrier(kSlotBarrier, kPairThreads);\n    }\n    return;', '    long long hw_ = 0, hb_ = 0;\n    for (int t = 0; t < T; ++t) {\n      long long h0_ = clock64();\n      if (t + 1 < T) fetch(t + 1);\n      long long h1_ = clock64();\n      repro::named_barrier(kDepartBarrier, kPairThreads);\n      long long h2_ = clock64();\n      vqsk::recompute_departures(recf, dep, rec_mask, rec_nd, NW, K, t);\n      long long h3_ = clock64();\n      repro::named_barrier(kSlotBarrier, kPairThreads);\n      hw_ += (h1_ - h0_) + (h3_ - h2_); hb_ += (h2_ - h1_) + (clock64() - h3_);\n    }\n    if (lane == 0) { g_prof[g * 32 + 24] = hw_; g_prof[g * 32 + 25] = hb_; }\n    return;')
+STREAM_VQS = ('    for (int t = 0; t < T; ++t) {\n      if (t + 1 < T) load_slot(t + 1);\n      repro::named_barrier(kDepartBarrier, kVqsThreads);\n      recompute_departures(recf, dep, rec_mask, rec_nd, NW, K, t);\n      repro::named_barrier(kSlotBarrier, kVqsThreads);\n    }\n    return;', '    long long hw_ = 0, hb_ = 0;\n    for (int t = 0; t < T; ++t) {\n      long long h0_ = clock64();\n      if (t + 1 < T) load_slot(t + 1);\n      long long h1_ = clock64();\n      repro::named_barrier(kDepartBarrier, kVqsThreads);\n      long long h2_ = clock64();\n      recompute_departures(recf, dep, rec_mask, rec_nd, NW, K, t);\n      long long h3_ = clock64();\n      repro::named_barrier(kSlotBarrier, kVqsThreads);\n      hw_ += (h1_ - h0_) + (h3_ - h2_); hb_ += (h2_ - h1_) + (clock64() - h3_);\n    }\n    if (lane == 0) { g_prof[g * 32 + 24] = hw_; g_prof[g * 32 + 25] = hb_; }\n    return;')
 
 # (anchor, replacement) pairs: each anchor must occur exactly once.
 PATCHES = {
@@ -170,13 +195,17 @@ PATCHES = {
          '  if (tid == 0) {\n' + STORE + '    dropped_out[g] = dropped;'),
     ],
     ("vqs_bf", "warp"): [
-        ('    for (int t = 0; t < T; ++t) {\n      if (t + 1 < T) classify_slot(t + 1);\n'
-         '      repro::named_barrier(kDepartBarrier, kBfThreads);\n      recompute(t);\n'
-         '      repro::named_barrier(kSlotBarrier, kBfThreads);\n    }\n    return;',
+        (('    for (int t = 0; t < T; ++t) {\n      if (t + 1 < T) classify_slot(t + 1);\n'
+          '      repro::named_barrier(kDepartBarrier, kBfThreads);\n      recompute(t);\n'
+          '      repro::named_barrier(kSlotBarrier, kBfThreads);\n    }\n    return;',
+          '    for (int t = 0; t < T; ++t) {\n      if (t + 1 < T) load_slot(t + 1);\n'
+          '      repro::named_barrier(kDepartBarrier, kBfThreads);\n'
+          '      recompute_departures(recf, dep, rec_mask, rec_nd, NW, K, t);\n'
+          '      repro::named_barrier(kSlotBarrier, kBfThreads);\n    }\n    return;'),
          '    long long hw_ = 0, hb_ = 0;\n    for (int t = 0; t < T; ++t) {\n'
-         '      long long h0_ = clock64();\n      if (t + 1 < T) classify_slot(t + 1);\n'
+         '      long long h0_ = clock64();\n      if (t + 1 < T) LOAD_SLOT(t + 1);\n'
          '      long long h1_ = clock64();\n      repro::named_barrier(kDepartBarrier, kBfThreads);\n'
-         '      long long h2_ = clock64();\n      recompute(t);\n      long long h3_ = clock64();\n'
+         '      long long h2_ = clock64();\n      RECOMPUTE;\n      long long h3_ = clock64();\n'
          '      repro::named_barrier(kSlotBarrier, kBfThreads);\n'
          '      hw_ += (h1_ - h0_) + (h3_ - h2_); hb_ += (h2_ - h1_) + (clock64() - h3_);\n    }\n'
          '    if (lane == 0) { g_prof[g * 32 + 24] = hw_; g_prof[g * 32 + 25] = hb_; }\n    return;'),
@@ -208,24 +237,129 @@ PATCHES = {
          '    PROF(9)\n    repro::named_barrier(kSlotBarrier, kBfThreads);\n    PROF(10)\n  }\n'
          '  if (lane == 0) {\n' + STORE + '    dropped_out[g] = dropped;'),
     ],
+    ("bfjs_mr", "block"): [
+        ('  int q_cnt = 0, seq0 = 0, dropped = 0, n_trunc = 0;\n',
+         '  int q_cnt = 0, seq0 = 0, dropped = 0, n_trunc = 0;\n' + START),
+        ('    const int n_dep = repro::block_reduce(my_dep, redi, repro::SumI());\n',
+         '    const int n_dep = repro::block_reduce(my_dep, redi, repro::SumI());\n    PROF(0)\n'),
+        ('      seq0 += n_t;\n    }\n', '      seq0 += n_t;\n    }\n    PROF(1)\n'),
+        ('    // 3. BF-S: walk the freed servers', '    PROF(2)\n    // 3. BF-S: walk the freed servers'),
+        ('      repro::block_arg64<false>(best, bq, redv, redi);\n',
+         '      repro::block_arg64<false>(best, bq, redv, redi);\n      PROF(3) CNT(21, 1)\n'),
+        ('      ++steps;\n      if (place(l, bq, t) < K) {',
+         '      ++steps;\n      CNT(20, 1) CNT(23, 1)\n      if (place(l, bq, t) < K) {'),
+        ('        blocked = true;\n      }\n    }\n', '        blocked = true;\n      }\n      PROF(4)\n    }\n'),
+        ('    // 4. BF-J: one attempt', '    PROF(4)\n    // 4. BF-J: one attempt'),
+        ('      ++steps;\n      const int q = new_pos[a_ptr];',
+         '      ++steps;\n      CNT(20, 1) CNT(22, 1)\n      const int q = new_pos[a_ptr];'),
+        ('      repro::block_arg64<true>(best, bl, redv, redi);\n',
+         '      repro::block_arg64<true>(best, bl, redv, redi);\n      PROF(5)\n'),
+        ('        ++n_trunc;\n      }\n    }\n\n    // saturation check',
+         '        ++n_trunc;\n      }\n      PROF(6)\n    }\n\n    PROF(6)\n    // saturation check'),
+        ('      n_trunc += repro::block_reduce(pend, redi, repro::MaxI());\n    }\n',
+         '      n_trunc += repro::block_reduce(pend, redi, repro::MaxI());\n    }\n    PROF(7)\n'),
+        ('      ndep_out[t] = n_dep;\n    }\n  }\n',
+         '      ndep_out[t] = n_dep;\n    }\n    PROF(8)\n  }\n'),
+        ('  if (tid == 0) {\n    dropped_out[g] = dropped;',
+         '  if (tid == 0) {\n' + STORE + '    dropped_out[g] = dropped;'),
+    ],
+    ("vqs", "block"): [
+        ('  int dropped = 0, n_trunc = 0;\n', '  int dropped = 0, n_trunc = 0;\n' + START),
+        ('    const int n_dep = repro::block_reduce(my_dep, redi, repro::SumI());\n',
+         '    const int n_dep = repro::block_reduce(my_dep, redi, repro::SumI());\n    PROF(0)\n'),
+        ('    // 3. visit set\n', '    PROF(1)\n    // 3. visit set\n'),
+        ('    bool done = false;\n    for (int step = 0; step <= W; ++step) {\n',
+         '    PROF(2)\n    bool done = false;\n    for (int step = 0; step <= W; ++step) {\n'),
+        ('      __syncthreads();\n      const unsigned hx = static_cast<unsigned>(bc[kHx]);',
+         '      __syncthreads();\n      PROF(3)\n      const unsigned hx = static_cast<unsigned>(bc[kHx]);'),
+        ('      key = repro::block_reduce(key, redi, repro::MinI());\n',
+         '      key = repro::block_reduce(key, redi, repro::MinI());\n      PROF(4)\n'),
+        ('      const int placer = key;\n', '      const int placer = key;\n      CNT(20, 1) CNT(21, placer < L)\n'),
+        ('      __syncthreads();\n\n      // serve the placer (warp 0)',
+         '      __syncthreads();\n      PROF(5)\n\n      // serve the placer (warp 0)'),
+        ('      __syncthreads();\n    }\n    // step bound hit',
+         '      __syncthreads();\n      PROF(6)\n    }\n    // step bound hit'),
+        ('    if (!done) n_trunc += any_pending(flags, L, redi);\n',
+         '    if (!done) n_trunc += any_pending(flags, L, redi);\n    PROF(7)\n'),
+        ('    write_slot(occ, qcnt, L, nvq, n_dep, redi, qlen + t, occ_out + t, ndep_out + t);\n',
+         '    write_slot(occ, qcnt, L, nvq, n_dep, redi, qlen + t, occ_out + t, ndep_out + t);\n'
+         '    __syncthreads();\n    PROF(8)\n'),
+        ('  if (tid == 0) {\n    dropped_out[g] = dropped;',
+         '  if (tid == 0) {\n' + STORE + '    dropped_out[g] = dropped;'),
+    ],
+    ("bfjs_mr", "warp"): [
+        STREAM_BFJS_MR,
+        ('  int q_cnt = 0, seq0 = 0, dropped = 0, n_trunc = 0;\n',
+         '  int q_cnt = 0, seq0 = 0, dropped = 0, n_trunc = 0;\n' + START),
+        ('    asm volatile("bar.arrive %0, %1;" ::"r"(kDepartBarrier), "r"(kPairThreads) : "memory");\n',
+         '    asm volatile("bar.arrive %0, %1;" ::"r"(kDepartBarrier), "r"(kPairThreads) : "memory");\n'
+         '    PROF(0)\n'),
+        ('    seq0 += n_t;\n', '    seq0 += n_t;\n    PROF(1)\n'),
+        ('      // the walk: rounds of 32 servers', '      PROF(2)\n      // the walk: rounds of 32 servers'),
+        ('              const int q = ok ? bfs_pick(av) : -1;\n',
+         '              const int q = ok ? bfs_pick(av) : -1;\n              PROF(3) CNT(21, 1)\n'),
+        ('                if (lane == ln) lw &= ~(1u << b);\n                break;',
+         '                if (lane == ln) lw &= ~(1u << b);\n                PROF(4)\n                break;'),
+        ('              ++steps;\n              int d[R];', '              ++steps;\n              CNT(23, 1)\n              int d[R];'),
+        ('                blocked = true;\n              }\n            }\n',
+         '                blocked = true;\n              }\n              PROF(4)\n            }\n'),
+        ('    // 4. BF-J: one attempt', '    PROF(4)\n    // 4. BF-J: one attempt'),
+        ('        const unsigned long long k = bfj_scan(d);\n',
+         '        const unsigned long long k = bfj_scan(d);\n        PROF(5) CNT(19, 1)\n'),
+        ('        if (!place(static_cast<int>(k & 0xffffffu), q, d)) ++n_trunc;\n      }\n',
+         '        if (!place(static_cast<int>(k & 0xffffffu), q, d)) ++n_trunc;\n        PROF(6)\n      }\n'),
+        ('    // saturation check, when the steps ran out',
+         '    PROF(6) CNT(20, steps) CNT(22, a_ptr)\n    // saturation check, when the steps ran out'),
+        ('      n_trunc += pend ? 1 : 0;\n    }\n', '      n_trunc += pend ? 1 : 0;\n    }\n    PROF(7)\n'),
+        ('    repro::named_barrier(kSlotBarrier, kPairThreads);\n  }\n  if (lane == 0) {\n    dropped_out[g] = dropped;',
+         '    PROF(8)\n    repro::named_barrier(kSlotBarrier, kPairThreads);\n    PROF(9)\n  }\n'
+         '  if (lane == 0) {\n' + STORE + '    dropped_out[g] = dropped;'),
+    ],
+    ("vqs", "warp"): [
+        STREAM_VQS,
+        ('  const unsigned lanes_below = (1u << lane) - 1u;\n',
+         '  const unsigned lanes_below = (1u << lane) - 1u;\n' + START),
+        ('    __syncwarp();\n    refresh_head();\n', '    __syncwarp();\n    refresh_head();\n    PROF(0)\n'),
+        ('    asm volatile("bar.arrive %0, %1;" ::"r"(kDepartBarrier), "r"(kVqsThreads) : "memory");\n',
+         '    asm volatile("bar.arrive %0, %1;" ::"r"(kDepartBarrier), "r"(kVqsThreads) : "memory");\n'
+         '    PROF(1) CNT(22, n_pend)\n'),
+        ('      const int he1 = heff[1];\n', '      const int he1 = heff[1];\n      PROF(2) CNT(20, 1)\n'),
+        ('      n_pend -= __reduce_add_sync(repro::kFullMask, adv);\n      __syncwarp();\n',
+         '      n_pend -= __reduce_add_sync(repro::kFullMask, adv);\n      __syncwarp();\n      PROF(3)\n'),
+        ('      // the p-th job goes to the p-th empty slot', '      PROF(4) CNT(21, 1)\n      // the p-th job goes to the p-th empty slot'),
+        ('      n_trunc += max(m - free_cnt, 0);  // K-overflow\n      __syncwarp();\n    }\n',
+         '      n_trunc += max(m - free_cnt, 0);  // K-overflow\n      __syncwarp();\n      PROF(5)\n    }\n'),
+        ('    repro::named_barrier(kSlotBarrier, kVqsThreads);\n  }\n  if (lane == 0) {\n    dropped_out[g] = dropped;',
+         '    PROF(6)\n    repro::named_barrier(kSlotBarrier, kVqsThreads);\n    PROF(7)\n  }\n'
+         '  if (lane == 0) {\n' + STORE + '    dropped_out[g] = dropped;'),
+    ],
 }
 
 
 def design(kernel: str, text: str) -> str:
     """'block' for the 512-thread block-wide kernels, 'warp' for the
     decision-warp kernels."""
-    if kernel == "bfjs":
+    if kernel in ("bfjs", "bfjs_mr"):
         return "block" if "constexpr int kThreads = 512;" in text else "warp"
     return "block" if "block_reduce" in text else "warp"
 
 
 def instrument(kernel: str, text: str) -> str:
-    include = '#include "reduce.cuh"\n' if kernel == "bfjs" else '#include "vqs_common.cuh"\n'
+    include = '#include "reduce.cuh"\n'
     text = text.replace(include, include + HEAD, 1)
     for anchor, repl in PATCHES[(kernel, design(kernel, text))]:
-        if text.count(anchor) != 1:
-            raise SystemExit(f"{kernel}: anchor found {text.count(anchor)} times:\n{anchor}")
-        text = text.replace(anchor, repl)
+        # an anchor may list the forms of several revisions: the one present is patched
+        for a in anchor if isinstance(anchor, tuple) else (anchor,):
+            if text.count(a) == 1:
+                if isinstance(anchor, tuple):  # keep that revision's own calls
+                    old = "classify_slot(t + 1)" in a
+                    repl = repl.replace("LOAD_SLOT", "classify_slot" if old else "load_slot")
+                    repl = repl.replace("RECOMPUTE", "recompute(t)" if old else
+                                        "recompute_departures(recf, dep, rec_mask, rec_nd, NW, K, t)")
+                text = text.replace(a, repl)
+                break
+        else:
+            raise SystemExit(f"{kernel}: anchor not found exactly once:\n{anchor}")
     return text + TAIL
 
 
@@ -267,8 +401,10 @@ def launch(lib, name, st, cfg):
     n, sizes, durs = st.n, st.sizes, st.durs
     G, T = n.shape
     dev = n.device
+    R = cfg.get("R", 1)
     out = [torch.empty((G, T), dtype=torch.int32, device=dev),
-           torch.empty((G, T), dtype=torch.float32, device=dev),
+           torch.empty((G, T) if name != "bfjs_mr" else (G, T, R), dtype=torch.float32,
+                       device=dev),
            torch.empty((G, T), dtype=torch.int32, device=dev),
            torch.zeros(G, dtype=torch.int32, device=dev),
            torch.zeros(G, dtype=torch.int32, device=dev)]
@@ -280,20 +416,33 @@ def launch(lib, name, st, cfg):
         fn.argtypes = [P, P, P] + [I] * 7 + [P] * 6
         err = fn(n.data_ptr(), sizes.data_ptr(), durs.data_ptr(), G, T, cfg["L"], cfg["K"],
                  cfg["Qcap"], cfg["A"], cfg["W"], *ptrs, stream)
-    else:
+    elif name == "bfjs_mr":
+        wsb = lib.bfjs_mr_workspace_bytes
+        wsb.restype = S
+        wsb.argtypes = [I] * 5
+        ws = torch.empty(G * wsb(cfg["L"], cfg["K"], cfg["Qcap"], cfg["A"], R), dtype=torch.uint8,
+                         device=dev)
+        caps = (ctypes.c_int * R)(*([65536] * R))
+        fn = lib.bfjs_mr_launch
+        fn.restype = I
+        fn.argtypes = [P, P, P] + [I] * 9 + [P] * 8
+        err = fn(n.data_ptr(), sizes.data_ptr(), durs.data_ptr(), G, T, cfg["L"], cfg["K"], R,
+                 cfg["Qcap"], cfg["A"], durs.shape[2], cfg["W"], ctypes.cast(caps, P),
+                 ws.data_ptr(), *ptrs, stream)
+    else:  # vqs_bf, vqs: the same entry-point signature
         J = cfg["J"]
-        wsb = lib.vqs_bf_workspace_bytes
+        wsb = getattr(lib, f"{name}_workspace_bytes")
         wsb.restype = S
         wsb.argtypes = [I] * 5
         ws = torch.empty(G * wsb(J, cfg["L"], cfg["K"], cfg["Qcap"], cfg["A"]), dtype=torch.uint8,
                          device=dev)
         confs = k_red_t(J, dev)
-        fn = lib.vqs_bf_launch
+        fn = getattr(lib, f"{name}_launch")
         fn.restype = I
         fn.argtypes = [P] * 4 + [I] * 10 + [P] * 7
         err = fn(n.data_ptr(), sizes.data_ptr(), durs.data_ptr(), confs.data_ptr(), G, T, J,
-                 cfg["L"], cfg["K"], cfg["Qcap"], cfg["A"], durs.shape[2], cfg["W"], 0,
-                 ws.data_ptr(), *ptrs, stream)
+                 cfg["L"], cfg["K"], cfg["Qcap"], cfg["A"], durs.shape[2], cfg["W"],
+                 cfg.get("P", 0), ws.data_ptr(), *ptrs, stream)
     if err:
         raise SystemExit(f"{name} launch failed: CUDA error {err}")
     return out
@@ -335,8 +484,8 @@ def split(lib, name, text, st, cfg, G, T):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", required=True,
-                    help="DIR[:TAG], a directory with bfjs.cu and vqs_bf.cu")
-    ap.add_argument("--which", default="bfjs,vqs_bf,vqs_bf16")
+                    help="DIR[:TAG], a directory with the kernels' sources")
+    ap.add_argument("--which", default=",".join(CELLS))
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--prof", action="store_true")
     ap.add_argument("--G", type=int, default=128)
@@ -355,8 +504,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
 
-    def sampler(gen, n, device):
-        return torch.rand((n,), generator=gen, device=device) * 0.8 + 0.1
+    def sampler(R):
+        def draw(gen, n, device):
+            return torch.rand((n,) if R == 1 else (n, R), generator=gen, device=device) * 0.8 + 0.1
+        return draw
 
     tags = [t for _, t in srcs]
     order = []
@@ -364,8 +515,10 @@ def main() -> int:
         order += tags if i % 2 == 0 else tags[::-1]
     for c in cells:
         name, cfg, lam = CELLS[c]
-        st = ensemble_streams(range(a.G), lam, 0.01, sampler, L=cfg["L"], K=cfg["K"],
-                              A_max=cfg["A"], horizon=a.T, device=torch.device("cuda"))
+        R = cfg.get("R", 1)
+        st = ensemble_streams(range(a.G), lam, 0.01, sampler(R), L=cfg["L"], K=cfg["K"],
+                              A_max=cfg["A"], horizon=a.T, device=torch.device("cuda"),
+                              num_resources=R)
         outs = {}
         for tag in order:
             ms, out = timed(libs[(tag, name)], name, st, cfg)
