@@ -56,7 +56,8 @@ second-to-last line of stdout is a JSON object with one entry per kernel,
 eight, ssd_scan last (launches, error against the plain version, kernel,
 plain, bound and library times; the attention kernels' and SDPA's times
 are device times of a CUDA graph of calls, since an eager decode call is
-bound by the host); the last line is ``{"ok": true,
+bound by the host; best_fit's row adds ``ms_g1``, the single-problem
+``ops.best_fit`` at the same law); the last line is ``{"ok": true,
 "device": ...}``.  Any failed phase raises, and the script exits non-zero
 without a result — also when no CUDA device is present.
 """
@@ -1172,7 +1173,7 @@ def main() -> int:
                                          monte_carlo_policy)
     from repro_torch.kernels import build
     from repro_torch.kernels.best_fit import best_fit as bf_kernel
-    from repro_torch.kernels.best_fit.ops import best_fit_batched
+    from repro_torch.kernels.best_fit.ops import best_fit, best_fit_batched
     from repro_torch.kernels.best_fit.ref import best_fit_ref_batched
     from repro_torch.kernels.bfjs import bfjs as bfjs_kernel
     from repro_torch.kernels.bfjs.ref import bfjs_ref
@@ -1246,9 +1247,18 @@ def main() -> int:
     bf_ms = time_ms(lambda: bf_kernel.best_fit_cuda(resid, sizes), reps=5)
     bf_plain_ms = time_ms(lambda: best_fit_ref_batched(resid, sizes), reps=1)
     bf_bound, bf_by = bound(4 * 2 * (G * L + G * N), G * N * L)
+    # the single-problem entry point, ops.best_fit, on one more draw of the law
+    r1 = torch.from_numpy(rng.uniform(0, 1, L).astype(np.float32)).to(dev)
+    s1 = torch.from_numpy(rng.uniform(0.01, 0.3, N).astype(np.float32)).to(dev)
+    got1 = best_fit(r1, s1)
+    torch.cuda.synchronize()
+    require_equal("best_fit G=1", got1, tuple(
+        x[0] for x in best_fit_ref_batched(r1[None], s1[None])))
+    bf_g1_ms = time_ms(lambda: best_fit(r1, s1), reps=5)
     print(f"best_fit G={G} L={L} N={N}: equal to plain (exact); "
           f"{placed} of {G * N} placed; kernel {bf_ms:.3f} ms, plain "
-          f"{bf_plain_ms:.1f} ms, bound {bf_bound:.4f} ms ({bf_by})")
+          f"{bf_plain_ms:.1f} ms, bound {bf_bound:.4f} ms ({bf_by}); "
+          f"G=1 (ops.best_fit): equal to plain, kernel {bf_g1_ms:.3f} ms")
 
     # -- 2. bfjs kernel vs plain, bench shape and full width ---------------
     for tag, (Gc, Lc, Kc, Qc, Ac, Tc, lam, mu, lo, hi) in {
@@ -1570,7 +1580,7 @@ def main() -> int:
         launches=bf_launches,
         max_abs_err=max_abs_err((assign, new_resid), ref_bf),
         ms=bf_ms, plain_ms=bf_plain_ms, bound_ms=bf_bound, bound_by=bf_by,
-        library_ms=None)
+        library_ms=None, ms_g1=bf_g1_ms)
 
     # -- 8. attention kernels vs plain at the serve path's shapes -----------
     rows["decode_attention"] = dict(

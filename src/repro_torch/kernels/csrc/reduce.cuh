@@ -1,13 +1,9 @@
 // Reductions shared by the scheduler kernels.
 //
-// The block-wide arg-reduction: called by all threads of the block with the
-// same arguments in the same order, it returns the result to all of them and
-// ends with __syncthreads(), so its scratch may be reused by the next call
-// and shared-memory writes made before the call are visible after it.
-// Warp-wide helpers (below it): called by all 32 lanes of one warp,
-// they return the result to every lane and need no barrier; on sm_80+ a
-// 32-bit min or max is one `redux.sync`.  Arg-reductions break ties to the
-// lowest index, as the JAX engines' min-of-masked-iota selections do.
+// Warp-wide helpers: called by all 32 lanes of one warp, they return the
+// result to every lane and need no barrier; on sm_80+ a 32-bit min or max is
+// one `redux.sync`.  Arg-reductions break ties to the lowest index, as the
+// JAX engines' min-of-masked-iota selections do.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,41 +11,6 @@
 namespace repro {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-
-// (value, index) pair: lowest value wins, then lowest index.
-__device__ __forceinline__ bool lower_pair(float v, int i, float bv, int bi) {
-  return v < bv || (v == bv && i < bi);
-}
-
-// (value, index) pair: highest value wins, then lowest index.
-__device__ __forceinline__ bool higher_pair(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-template <bool kMin>
-__device__ __forceinline__ void block_arg(float& v, int& i, float* redf, int* redi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFullMask, v, off);
-    const int oi = __shfl_xor_sync(kFullMask, i, off);
-    if (kMin ? lower_pair(ov, oi, v, i) : higher_pair(ov, oi, v, i)) { v = ov; i = oi; }
-  }
-  if (lane == 0) { redf[warp] = v; redi[warp] = i; }
-  __syncthreads();
-  v = redf[0];
-  i = redi[0];
-  for (int w = 1; w < nwarps; ++w) {
-    if (kMin ? lower_pair(redf[w], redi[w], v, i) : higher_pair(redf[w], redi[w], v, i)) {
-      v = redf[w];
-      i = redi[w];
-    }
-  }
-  __syncthreads();
-}
-
-// ---- warp-wide --------------------------------------------------------------
 
 // 32-bit key whose unsigned order is the order of the float `f` (not NaN).
 // -0.0 takes the key of +0.0, since the two compare equal.  The keys of NaN
@@ -60,6 +21,8 @@ __device__ __forceinline__ unsigned float_order_key(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+// The float of a key.  It also inverts the bijective form of the key (the
+// one above without its -0.0 line): every bit pattern, -0.0 and NaN too.
 __device__ __forceinline__ float order_key_float(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }

@@ -80,3 +80,49 @@ def test_best_fit_wrapper_cpu_runs_plain_version_and_validates():
     with pytest.raises(ValueError, match="CUDA tensors"):
         best_fit_batched(torch.rand(2, 4, device="meta"),
                          torch.rand(2, 3, device="meta"))
+
+
+_BIG = np.float32(3.4e38)
+_BIG_UP = np.nextafter(_BIG, np.float32(np.inf))
+
+#: (residuals, sizes, assignment, the JAX plain oracle agrees): the edges of
+#: the TPU kernel's rule, where an infeasible server is masked to 3.4e38 and
+#: a feasible one wins only where its masked value equals the least.  The
+#: JAX plain oracle masks with inf instead, so it places a job on a residual
+#: above 3.4e38 beside an infeasible server; Pallas and the port do not.
+BF_EDGE_CASES = {
+    "inf_beside_infeasible": ([np.inf, 0.5], [0.7], [-1], False),
+    "all_inf": ([np.inf, np.inf], [0.7], [0], True),
+    "exactly_big": ([_BIG, 0.5], [0.7], [0], True),
+    "big_before_above_big": ([_BIG_UP, 0.5, _BIG], [0.7], [2], True),
+    "above_big_beside_infeasible": ([_BIG_UP, 0.5], [0.7], [-1], False),
+    "nan_residuals": ([np.nan, 0.9, -np.nan], [0.7, 0.1, 0.5], [1, 1, -1],
+                      True),
+    "bad_sizes": ([0.5, 0.25], [np.nan, -0.0, 0.0, -0.1, 0.25],
+                  [-1, -1, -1, -1, 1], True),
+    "subnormal_on_empty": ([0.0, -0.0], [1e-45, 1e-40], [-1, -1], True),
+    "negative_zero_kept": ([-0.0, 0.5, 0.0], [0.5, 0.1], [1, -1], True),
+    "inf_size": ([np.inf, 1.0], [np.inf, 0.5], [-1, 1], False),
+    "inf_minus_inf": ([np.inf], [np.inf, 1.0], [0, -1], True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF_EDGE_CASES))
+def test_best_fit_edge_values_match_pallas(case):
+    """The port's plain version equals the Pallas kernel in interpret mode at
+    the rule's edges: assignments exactly, residuals bit for bit (-0.0 and
+    NaN included), and the JAX plain oracle wherever it keeps the rule."""
+    resid, sizes, want, ref_agrees = BF_EDGE_CASES[case]
+    resid = np.array(resid, np.float32)
+    sizes = np.array(sizes, np.float32)
+    a, r = best_fit(torch.from_numpy(resid), torch.from_numpy(sizes))
+    assert a.tolist() == want
+    bits = r.numpy().view(np.int32)
+    a1, r1 = best_fit_pallas(jnp.asarray(resid), jnp.asarray(sizes),
+                             interpret=True)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(a1))
+    np.testing.assert_array_equal(bits, np.asarray(r1).view(np.int32))
+    a2, r2 = best_fit_ref(jnp.asarray(resid), jnp.asarray(sizes))
+    same = (np.array_equal(a.numpy(), np.asarray(a2))
+            and np.array_equal(bits, np.asarray(r2).view(np.int32)))
+    assert same == ref_agrees

@@ -62,6 +62,143 @@ def test_best_fit_kernel_equals_plain(cuda, G, L, N, seed):
     assert torch.equal(r, r0)
 
 
+#: csrc/best_fit.cu holds up to BF_CAP servers in a warpgroup's registers and
+#: up to BF_MAX in shared memory (L * 4 bytes + 128 under 232,448); the
+#: parent kernel took up to 58,048.  Each test below runs on both sides of
+#: BF_CAP, so it reaches both routes.
+BF_CAP, BF_MAX = 8192, 58080
+BF_EDGE = 3.4e38
+
+
+def _bf_equal(cuda, resid, sizes):
+    """The kernel against the plain version on the card: assignments
+    exactly, residuals bit for bit (as int32)."""
+    r = torch.from_numpy(np.ascontiguousarray(resid, np.float32)).to(cuda)
+    s = torch.from_numpy(np.ascontiguousarray(sizes, np.float32)).to(cuda)
+    before = bf_kernel.launches.count
+    a, out = bf_kernel.best_fit_cuda(r, s)
+    torch.cuda.synchronize()
+    assert bf_kernel.launches.count == before + 1
+    a0, r0 = best_fit_ref_batched(r, s)
+    assert torch.equal(a, a0)
+    assert torch.equal(out.view(torch.int32), r0.view(torch.int32))
+    return a
+
+
+@pytest.mark.parametrize("L", [1, 31, 33, 1000, 1024, 1025, 2048, 2049,
+                               4096, 4097, 5000, BF_CAP, BF_CAP + 1, 58048,
+                               BF_MAX])
+def test_best_fit_kernel_at_its_edges(cuda, L):
+    """1 server, one lane-round either side of 32, the path's 1000, each
+    register instance's cap and one past it, the shared-memory route from
+    BF_CAP + 1, the largest L the parent kernel took and the largest this
+    one takes; N shrinks with L to keep the plain version quick."""
+    rng = np.random.default_rng(L)
+    G, N = (3, 300) if L <= BF_CAP + 1 else (2, 48)
+    resid = rng.uniform(0, 1, (G, L))
+    sizes = rng.uniform(0.01, 0.8, (G, N))
+    sizes[:, ::13] = 0.0
+    _bf_equal(cuda, resid, sizes)
+
+
+def test_best_fit_kernel_past_its_shared_memory_raises(cuda):
+    r = torch.rand(1, BF_MAX + 1, device=cuda)
+    with pytest.raises(RuntimeError, match="best_fit kernel launch"):
+        bf_kernel.best_fit_cuda(r, torch.rand(1, 4, device=cuda))
+    # the refused launch leaves no error behind for the next one
+    _bf_equal(cuda, np.full((1, 4), 0.5), np.full((1, 3), 0.25))
+
+
+@pytest.mark.parametrize("L", [100, BF_CAP + 1])
+@pytest.mark.parametrize("N", [0, 1])
+def test_best_fit_kernel_no_or_one_job(cuda, L, N):
+    rng = np.random.default_rng(N)
+    resid = rng.uniform(0, 1, (2, L))
+    resid[1, 7] = -0.0  # untouched residuals keep their bits
+    _bf_equal(cuda, resid, rng.uniform(0.01, 0.8, (2, N)))
+
+
+@pytest.mark.parametrize("L", [1000, BF_CAP + 1])
+def test_best_fit_kernel_more_problems_than_sms(cuda, L):
+    rng = np.random.default_rng(300)
+    _bf_equal(cuda, rng.uniform(0, 1, (300, L)),
+              rng.uniform(0.01, 0.3, (300, 512)))
+
+
+@pytest.mark.parametrize("L", [40, 1000, BF_CAP + 8])
+def test_best_fit_kernel_ties_on_a_grid(cuda, L):
+    """Residuals and sizes on a grid of eighths: equal residuals within a
+    lane's slots and across lanes and warps, exact fits down to 0."""
+    rng = np.random.default_rng(L)
+    resid = rng.integers(0, 8, (4, L)) / 8.0
+    sizes = rng.integers(1, 4, (4, 3 * min(L, 1000))) / 8.0
+    _bf_equal(cuda, resid, sizes)
+
+
+def _bf_edge_problems():
+    """(residuals, sizes) pairs at the TPU kernel's rule's edges."""
+    big_up = np.nextafter(np.float32(BF_EDGE), np.float32(np.inf))
+    cases = [
+        ([np.inf, 0.5], [0.7]),          # inf loses to an infeasible server
+        ([np.inf, np.inf], [0.7]),       # all feasible: server 0
+        ([BF_EDGE, 0.5], [0.7]),         # exactly kBig: placed
+        ([big_up, 0.5, BF_EDGE], [0.7]),
+        ([big_up, 0.5], [0.7]),
+        ([np.nan, 0.9, -np.nan], [0.7, 0.1, 0.5]),
+        ([0.5, 0.25], [np.nan, -0.0, 0.0, -0.1, 0.25]),
+        ([0.0, -0.0], [1e-45, 1e-40]),   # subnormal sizes on empty servers
+        ([-0.0, 0.5, 0.0], [0.5, 0.1]),
+        ([np.inf, 1.0], [np.inf, 0.5]),
+        ([np.inf], [np.inf, 1.0]),       # inf - inf: a NaN server
+    ]
+    return [(np.array(r, np.float32), np.array(s, np.float32))
+            for r, s in cases]
+
+
+@pytest.mark.parametrize("where", ["alone", "first", "last"])
+@pytest.mark.parametrize("case", range(len(_bf_edge_problems())))
+def test_best_fit_kernel_edge_values(cuda, where, case):
+    """Each case alone, and at the start and at the end of a problem of
+    BF_CAP + 1 servers (the shared-memory route), padded with copies of its
+    own last or first residual so that the case keeps its set of values."""
+    resid, sizes = _bf_edge_problems()[case]
+    pad = BF_CAP + 1 - resid.size
+    if where == "first":
+        resid = np.pad(resid, (0, pad), mode="edge")
+    elif where == "last":
+        resid = np.pad(resid, (pad, 0), mode="edge")
+    _bf_equal(cuda, resid[None], sizes[None])
+
+
+@pytest.mark.parametrize("L", [70, BF_CAP + 58])
+def test_best_fit_kernel_edge_values_mixed(cuda, L):
+    """The edge values scattered over L servers and 400 jobs, 6 problems."""
+    rng = np.random.default_rng(7)
+    r_pool = np.array([np.inf, BF_EDGE, np.nan, -np.nan, -0.0, 0.0, -1.0,
+                       0.25, 0.5, 1.0, 2.0], np.float32)
+    s_pool = np.array([np.nan, -0.0, 0.0, -0.5, 1e-45, 0.25, 0.5, 0.125,
+                       1.0, np.inf], np.float32)
+    resid = np.where(rng.uniform(size=(6, L)) < 0.3,
+                     rng.choice(r_pool, (6, L)), rng.uniform(0, 2, (6, L)))
+    sizes = np.where(rng.uniform(size=(6, 400)) < 0.3,
+                     rng.choice(s_pool, (6, 400)),
+                     rng.uniform(0.01, 0.6, (6, 400)))
+    _bf_equal(cuda, resid, sizes)
+
+
+@pytest.mark.parametrize("L", [64, BF_CAP + 8])
+def test_best_fit_kernel_rejects_above_the_largest_residual(cuda, L):
+    """64 servers with room, the rest empty: capacity runs out early, so
+    most jobs are larger than the largest residual left and take the
+    kernel's rejection without a scan."""
+    rng = np.random.default_rng(11)
+    resid = np.zeros((4, L))
+    resid[:, rng.choice(L, 64, replace=False)] = rng.uniform(0, 1, (4, 64))
+    sizes = rng.uniform(0.3, 0.9, (4, 2000))
+    a = _bf_equal(cuda, resid, sizes)
+    assert float((a < 0).float().mean()) > 0.9
+
+
 @pytest.mark.parametrize("G,L,K,Qcap,A_max,T,lam,mu,W", [
     (2, 4, 6, 64, 6, 120, 1.2, 0.02, 10),
     (3, 16, 24, 512, 8, 300, 1.5, 0.01, 12),

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Time the scheduler kernels at the path shapes, in turns, and split each
-slot's time by phase.
+slot's (or Best-Fit job's) time by phase.
 
     python3 tools/sched_kernel_split.py --src DIR[:TAG] [--src DIR2:TAG2 ...]
-        [--which bfjs,vqs_bf,vqs_bf16,bfjs_mr,vqs,vqs16] [--turns 2] [--prof]
+        [--which bfjs,vqs_bf,vqs_bf16,bfjs_mr,vqs,vqs16,best_fit,best_fit_g1,
+         best_fit_g1024] [--turns 2] [--prof]
 
-Each DIR holds ``bfjs.cu``, ``vqs_bf.cu``, ``bfjs_mr.cu`` and ``vqs.cu``
-with the headers they include: the port's ``src/repro_torch/kernels/csrc``,
+Each DIR holds ``bfjs.cu``, ``vqs_bf.cu``, ``bfjs_mr.cu``, ``vqs.cu`` and
+``best_fit.cu`` with the headers they include: the port's ``src/repro_torch/kernels/csrc``,
 or an older revision's copy (``git show REV:src/repro_torch/kernels/csrc/
 bfjs.cu > DIR/bfjs.cu`` and so on, into a directory that ``.gitignore``
 lists).  The script builds every source with nvcc into
@@ -17,13 +18,17 @@ resource, mu = 0.01, K = 16, A_max = 48, W = 52; bfjs: Qcap = 4096, lam =
 ``vqs_bf16`` and ``vqs16``, vqs with drain 16; bfjs_mr: R = 2, Qcap = 1024,
 lam = 16), times each source's kernel with CUDA events (a warm-up launch,
 then the mean of 3) in turns — the sources in order, then in reverse — and
-checks that all sources give equal trajectories.
+checks that all sources give equal trajectories.  The ``best_fit`` cells
+are the best-fit path's shape (128 problems x 1000 servers x 4096 jobs,
+residuals U[0, 1], sizes U[0.01, 0.3], numpy seed 0) and the same law at
+1 and 1024 problems, each source timed as the mean of 10 launches.
 
 ``--prof`` also builds a copy of each source with clock64() counters at
 its phase boundaries (written beside the builds; the sources are not
-touched) and prints, per slot and averaged over the members, the cycles of
-each phase as the block's thread 0 sees them, the cycles the second warp
-works and waits (the two-warp designs), and counts of steps.  The counters
+touched) and prints, per slot (per job for best_fit) and averaged over the
+members, the cycles of each phase as the block's thread 0 sees them, the
+cycles the second warp works and waits (the two-warp designs), and counts
+of steps (best_fit: scans, rejections without a scan, recomputed maxima).  The counters
 add a few per cent to the kernel's time.  It needs a CUDA device and
 nvcc, and exits non-zero without them.
 """
@@ -50,6 +55,9 @@ CELLS = {  # cell: (kernel, shape, lam)
     "bfjs_mr": ("bfjs_mr", dict(R=2, L=1000, K=16, Qcap=1024, A=48, W=52), 16.0),
     "vqs": ("vqs", dict(J=4, L=1000, K=16, Qcap=1024, A=48, W=52, P=16), 12.0),
     "vqs16": ("vqs", dict(J=4, L=1000, K=16, Qcap=1024, A=48, W=52, P=16), 16.0),
+    "best_fit": ("best_fit", dict(G=128, L=1000, N=4096), None),
+    "best_fit_g1": ("best_fit", dict(G=1, L=1000, N=4096), None),
+    "best_fit_g1024": ("best_fit", dict(G=1024, L=1000, N=4096), None),
 }
 
 HEAD = ('__device__ long long g_prof[4096 * 32];\n'
@@ -57,7 +65,10 @@ HEAD = ('__device__ long long g_prof[4096 * 32];\n'
         'pacc[i] += now_ - plast; plast = now_; }\n'
         '#define CNT(i, v) if (threadIdx.x == 0) { pacc[i] += (v); }\n')
 TAIL = ('\nextern "C" int prof_read(long long* host, int n) {\n'
-        '  return cudaMemcpyFromSymbol(host, g_prof, n * sizeof(long long));\n}\n')
+        '  return cudaMemcpyFromSymbol(host, g_prof, n * sizeof(long long));\n}\n'
+        'extern "C" int prof_clear() {\n  void* p = nullptr;\n'
+        '  const cudaError_t e = cudaGetSymbolAddress(&p, g_prof);\n'
+        '  return e ? e : cudaMemset(p, 0, sizeof(g_prof));\n}\n')
 START = '  long long pacc[32] = {0}; long long plast = clock64(); const long long pstart = plast;\n'
 STORE = ('    pacc[31] = clock64() - pstart;\n'
          '    for (int i = 0; i < 32; ++i) if (i < 24 || i == 31) g_prof[g * 32 + i] = pacc[i];\n')
@@ -94,6 +105,11 @@ NAMES = {
                           7: "saturation", 8: "outputs", 9: "barrier_wait", 19: "#bfj_scans",
                           20: "#steps", 21: "#bfs_tests", 22: "#bfj_steps", 23: "#bfs_places",
                           24: "warp1_work", 25: "warp1_wait"},
+    ("best_fit", "block"): {0: "size_load", 1: "scan", 2: "block_arg", 3: "update+sync",
+                            20: "#scans"},
+    ("best_fit", "warp"): {0: "fetch+test", 1: "scan", 2: "reduce+exchange", 3: "update",
+                           4: "tail", 20: "#scans", 21: "#no-scan rejects",
+                           26: "#max_recomputes"},
     ("vqs", "warp"): {0: "merge+arrivals", 1: "departures+visit", 2: "config", 3: "walk",
                       4: "prefix_fit", 5: "place", 6: "outputs", 7: "barrier_wait",
                       20: "#steps", 21: "#serves", 22: "#pending",
@@ -106,6 +122,38 @@ STREAM_VQS = ('    for (int t = 0; t < T; ++t) {\n      if (t + 1 < T) load_slot
 
 # (anchor, replacement) pairs: each anchor must occur exactly once.
 PATCHES = {
+    ("best_fit", "block"): [
+        ('  for (int l = threadIdx.x; l < L; l += blockDim.x) r[l] = resid[l];\n  __syncthreads();\n',
+         '  for (int l = threadIdx.x; l < L; l += blockDim.x) r[l] = resid[l];\n  __syncthreads();\n'
+         + START),
+        ('    const float size = sizes[j];\n', '    const float size = sizes[j];\n    PROF(0)\n'),
+        ('    repro::block_arg<true>(bv, bi, redf, redi);\n',
+         '    PROF(1)\n    repro::block_arg<true>(bv, bi, redf, redi);\n    PROF(2)\n'),
+        ('    __syncthreads();\n  }\n  for (int l = threadIdx.x; l < L; l += blockDim.x) out_resid[l] = r[l];',
+         '    __syncthreads();\n    PROF(3) CNT(20, 1)\n  }\n  if (threadIdx.x == 0) {\n' + STORE
+         + '  }\n  for (int l = threadIdx.x; l < L; l += blockDim.x) out_resid[l] = r[l];'),
+    ],
+    ("best_fit", "warp"): [
+        ('  int xp = 0;  // exchanges made: picks the buffer\n',
+         '  int xp = 0;  // exchanges made: picks the buffer\n' + START),
+        ('    if (size > 0.f && ks <= gmax) {  // else nothing fits: rejected without a scan\n',
+         '    PROF(0) CNT(21, !(size > 0.f && ks <= gmax))\n'
+         '    if (size > 0.f && ks <= gmax) {  // else nothing fits: rejected without a scan\n'
+         '      CNT(20, 1)\n'),
+        ('      unsigned bd = __reduce_min_sync(repro::kFullMask, d);\n',
+         '      PROF(1)\n      unsigned bd = __reduce_min_sync(repro::kFullMask, d);\n'),
+        ('      const unsigned bk = bd + ks;  // the tightest key\n',
+         '      PROF(2)\n      const unsigned bk = bd + ks;  // the tightest key\n'),
+        ('          if (bk == wmax) {\n',
+         '          if (bk == wmax) {\n            if (lane == 0) atomicAdd('
+         'reinterpret_cast<unsigned long long*>(&g_prof[g * 32 + 26]), 1ull);\n'),
+        ('            wmax = __reduce_max_sync(repro::kFullMask, m);\n          }\n        }\n      }\n'
+         '    }\n',
+         '            wmax = __reduce_max_sync(repro::kFullMask, m);\n          }\n        }\n      }\n'
+         '      PROF(3)\n    }\n'),
+        ('    size = size_n;\n  }\n',
+         '    size = size_n;\n    PROF(4)\n  }\n  if (threadIdx.x == 0) {\n' + STORE + '  }\n'),
+    ],
     ("bfjs", "block"): [
         ('  int q_cnt = 0, dropped = 0, n_trunc = 0;\n',
          '  int q_cnt = 0, dropped = 0, n_trunc = 0;\n' + START),
@@ -341,6 +389,8 @@ def design(kernel: str, text: str) -> str:
     decision-warp kernels."""
     if kernel in ("bfjs", "bfjs_mr"):
         return "block" if "constexpr int kThreads = 512;" in text else "warp"
+    if kernel == "best_fit":
+        return "block" if "block_arg" in text else "warp"
     return "block" if "block_reduce" in text else "warp"
 
 
@@ -395,9 +445,28 @@ def build(srcs, kernels, prof: bool):
     return libs
 
 
+def launch_best_fit(lib, inputs):
+    """One ``best_fit_launch`` on ``inputs`` (residuals, sizes)."""
+    import torch
+    resid, sizes = inputs
+    G, L = resid.shape
+    N = sizes.shape[1]
+    out = [torch.empty((G, N), dtype=torch.int32, device=resid.device), torch.empty_like(resid)]
+    fn = lib.best_fit_launch
+    fn.argtypes = [P, P, I, I, I, P, P, P]
+    fn.restype = I
+    err = fn(resid.data_ptr(), sizes.data_ptr(), G, L, N, out[0].data_ptr(), out[1].data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise SystemExit(f"best_fit launch failed: CUDA error {err}")
+    return out
+
+
 def launch(lib, name, st, cfg):
     import torch
     from repro_torch.core.engine.ops import k_red_t
+    if name == "best_fit":
+        return launch_best_fit(lib, st)
     n, sizes, durs = st.n, st.sizes, st.durs
     G, T = n.shape
     dev = n.device
@@ -461,8 +530,11 @@ def timed(lib, name, st, cfg, reps: int = 3):
     return e0.elapsed_time(e1) / reps, out
 
 
-def split(lib, name, text, st, cfg, G, T):
+def split(lib, name, text, st, cfg, G, T, unit="slot"):
     import torch
+    lib.prof_clear.restype = I
+    if lib.prof_clear():
+        raise SystemExit("clearing the counters failed")
     launch(lib, name, st, cfg)
     torch.cuda.synchronize()
     buf = (ctypes.c_longlong * (4096 * NCOUNT))()
@@ -472,13 +544,44 @@ def split(lib, name, text, st, cfg, G, T):
         raise SystemExit("reading the counters failed")
     mean = torch.tensor(list(buf)[: G * NCOUNT], dtype=torch.float64).view(G, NCOUNT).mean(0)
     total = float(mean[31])
-    print(f"  total {total / T:.0f} cycles a slot")
+    print(f"  total {total / T:.0f} cycles a {unit}")
     for i, label in NAMES[(name, design(name, text))].items():
         v = float(mean[i]) / T
         if label.startswith("#"):
-            print(f"  {label[1:]:18s} {v:10.3f} a slot")
+            print(f"  {label[1:]:18s} {v:10.3f} a {unit}")
         else:
-            print(f"  {label:18s} {v:10.0f} cycles a slot {100 * float(mean[i]) / total:6.1f}%")
+            print(f"  {label:18s} {v:10.0f} cycles a {unit} {100 * float(mean[i]) / total:6.1f}%")
+
+
+def best_fit_cell(c, cfg, srcs, order, libs, prof: bool) -> None:
+    """Time every source in turns on one best_fit cell, check them equal,
+    then split each."""
+    import numpy as np
+    import torch
+    G, L, N = cfg["G"], cfg["L"], cfg["N"]
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    inputs = (torch.from_numpy(rng.uniform(0, 1, (G, L)).astype(np.float32)).to(dev),
+              torch.from_numpy(rng.uniform(0.01, 0.3, (G, N)).astype(np.float32)).to(dev))
+    texts = {tag: (Path(d) / "best_fit.cu").read_text() for d, tag in srcs}
+    outs = {}
+    for tag in order:
+        ms, outs[tag] = timed(libs[(tag, "best_fit")], "best_fit", inputs, cfg, reps=10)
+        print(f"{c} {tag}: {ms:.4f} ms; placed {int((outs[tag][0] >= 0).sum())} of {G * N}",
+              flush=True)
+    first = next(iter(outs))
+    for label, out in outs.items():
+        if label != first:
+            same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                       for x, y in zip(outs[first], out))
+            print(f"{c} {label} equal to {first}: {same}")
+            if not same:
+                raise SystemExit(1)
+    if prof:
+        for tag in texts:
+            print(f"--- {c} {tag} ({design('best_fit', texts[tag])} design), split by phase:")
+            split(libs[(tag + "-prof", "best_fit")], "best_fit", texts[tag], inputs, cfg, G, N,
+                  unit="job")
 
 
 def main() -> int:
@@ -515,6 +618,9 @@ def main() -> int:
         order += tags if i % 2 == 0 else tags[::-1]
     for c in cells:
         name, cfg, lam = CELLS[c]
+        if name == "best_fit":
+            best_fit_cell(c, cfg, srcs, order, libs, a.prof)
+            continue
         R = cfg.get("R", 1)
         st = ensemble_streams(range(a.G), lam, 0.01, sampler(R), L=cfg["L"], K=cfg["K"],
                               A_max=cfg["A"], horizon=a.T, device=torch.device("cuda"),
