@@ -17,6 +17,14 @@ port's paths through the entry points a user calls:
     and vqs kernels at offered load 0.8, where their queues fill and the
     ring pops and packing bursts are timed (``ms_at_load_0_8`` in the
     kernels line);
+  * the oracle bridge: one trace at the same width (Poisson(16) arrivals a
+    slot, load 0.8, sizes U[0.1, 0.9] in float64, durations Geometric(0.01),
+    1000 slots, from ``--seed``) replayed through
+    ``run_policy_streams(streams_from_trace(...), policy="vqs"|"vqs-bf",
+    engine="cuda")``, J = 4, K = 16, Qcap = 4096: each queue trajectory must
+    equal the port's event-driven ``simulate_trace`` (host numpy) slot for
+    slot, with the departures, nothing truncated or dropped, and one launch
+    of the path's own kernel;
   * bfjs-mr path: ``monte_carlo_policy(..., policy="bfjs-mr",
     engine="cuda")`` — the same cluster with two resources (cpu, mem),
     each demand U[0.1, 0.9] independently, at offered load 0.8 per
@@ -52,7 +60,11 @@ port's paths through the entry points a user calls:
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; it must launch its own kernel and no other.  The
-second-to-last line of stdout is a JSON object with one entry per kernel,
+scheduler kernels are held to their plain versions on the first
+``PLAIN_MEMBERS`` members of each path's streams (the plain versions are
+host-bound and set most of the run's time).  Each phase prints its host
+seconds on a line of its own, and the "all phases passed" line the total.
+The second-to-last line of stdout is a JSON object with one entry per kernel,
 eight, ssd_scan last (launches, error against the plain version, kernel,
 plain, bound and library times; the attention kernels' and SDPA's times
 are device times of a CUDA graph of calls, since an eager decode call is
@@ -87,9 +99,10 @@ FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
 TF32_TC_OPS_PER_S = 495e12
 
-#: Members of the full-width streams the VQS-family and bfjs_mr kernels
-#: are held against their plain versions on (members are independent, so
-#: the first eight of the ensemble are an exact sub-problem).
+#: Members of the full-width streams the bfjs, VQS-family and bfjs_mr
+#: kernels are held against their plain versions on (members are
+#: independent, so the first ones of the ensemble are an exact
+#: sub-problem); each kernel is held to ``monte_carlo_policy`` on all 128.
 PLAIN_MEMBERS = 8
 
 #: Seeds whose weights and 256-token prompt the bf16 teacher-forced gate
@@ -288,6 +301,86 @@ def check_path(tag: str, res, G, T, L, offered, counters, own):
                                  f"within 0.03 of the offered load "
                                  f"{offered:.4f}")
     return utils if occ.ndim == 3 else utils[0]
+
+
+class PhaseClock:
+    """Host seconds of each phase, printed on a line of its own as the
+    phase ends, and of the whole run."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - self.last:.1f} s", flush=True)
+        self.last = now
+
+    def total(self) -> float:
+        return time.perf_counter() - self.start
+
+
+def bridge_phase(dev, seed: int, counters, reset_counters, L: int = 1000,
+                 T: int = 1000, lam: float = 16.0, mu: float = 0.01) -> None:
+    """The oracle bridge at the paper's width: ``engine="cuda"`` VQS and
+    VQS-BF replay one trace (load 0.8 of L unit servers at mean size 0.5)
+    and must equal the port's event-driven ``simulate_trace`` slot for
+    slot, with nothing truncated or dropped, each launching its own kernel
+    once and no other."""
+    from repro_torch.core import VQS, VQSBF, simulate_trace
+    from repro_torch.core.engine import run_policy_streams, streams_from_trace
+    # the trace: Poisson(lam) arrivals a slot, sizes U[0.1, 0.9] in float64,
+    # durations Geometric(mu)
+    rng = np.random.default_rng(seed)
+    slots = np.repeat(np.arange(T), rng.poisson(lam, T))
+    sizes = rng.uniform(0.1, 0.9, len(slots))
+    durs = rng.geometric(mu, len(slots))
+    A_max = int(np.bincount(slots, minlength=T).max())
+    print(f"bridge trace L={L} T={T} lam={lam} mu={mu}: {len(slots)} jobs, "
+          f"at most {A_max} a slot")
+    for policy, name, sched, extra in (
+            ("vqs", "vqs", VQS, {}),
+            ("vqs-bf", "vqs_bf", VQSBF, dict(work_steps=64))):
+        t0 = time.perf_counter()
+        ref = simulate_trace(sched(J=4), L=L, arrival_slots=slots,
+                             sizes=sizes, durations=durs, horizon=T,
+                             seed=seed, record_every=1)
+        host_s = time.perf_counter() - t0
+        st = streams_from_trace(slots, sizes, durs, horizon=T, device=dev)
+        reset_counters()
+        wall, res = wall_ms(lambda: run_policy_streams(
+            st, policy=policy, engine="cuda", strict=True, J=4, L=L, K=16,
+            Qcap=4096, A_max=A_max, **extra))
+        launches = {n: c.count for n, c in counters.items()}
+        tag = f"bridge {policy}"
+        if int(res.truncated) or int(res.dropped):
+            raise AssertionError(f"{tag}: truncated {int(res.truncated)}, "
+                                 f"dropped {int(res.dropped)}")
+        qlen = res.queue_len.cpu().numpy()
+        if qlen.shape != ref.queue_lens.shape:
+            raise AssertionError(f"{tag}: queue trajectory of shape "
+                                 f"{qlen.shape}, oracle {ref.queue_lens.shape}")
+        diff = np.flatnonzero(qlen != ref.queue_lens)
+        if diff.size:
+            t = int(diff[0])
+            raise AssertionError(f"{tag}: queue length {int(qlen[t])} at slot "
+                                 f"{t}, oracle {int(ref.queue_lens[t])}")
+        if int(res.departed[-1]) != ref.departed:
+            raise AssertionError(f"{tag}: {int(res.departed[-1])} departed, "
+                                 f"oracle {ref.departed}")
+        mean_q = float(qlen.mean())
+        if policy == "vqs" and not mean_q > 0:
+            raise AssertionError(f"{tag}: the queue never filled, so no "
+                                 "packing burst was compared")
+        if launches[name] != 1 or any(c for n, c in launches.items()
+                                      if n != name):
+            raise AssertionError(f"{tag}: launches {launches}, expected one "
+                                 f"of {name} and no other")
+        print(f"{tag} J=4 K=16 Qcap=4096 A_max={A_max}: equal to "
+              f"simulate_trace slot for slot; oracle {host_s:.2f} s (host), "
+              f"engine {wall:.1f} ms (wall, {name} launches 1); mean queue "
+              f"{mean_q:.3f}; departed {ref.departed} of {ref.arrived}; "
+              f"truncated 0, dropped 0")
+        del st, res
 
 
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -1202,7 +1295,7 @@ def main() -> int:
         for c in counters.values():
             c.reset()
 
-    t_start = time.perf_counter()
+    clock = PhaseClock()
     dev = torch.device("cuda")
     card = gpu_name_and_power_limit()
     print(f"card: {card}")
@@ -1212,6 +1305,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    clock.done("0 set-up and build")
 
     def uniform(lo, hi, R=1):
         def sampler(gen, n, device):
@@ -1259,6 +1353,7 @@ def main() -> int:
           f"{placed} of {G * N} placed; kernel {bf_ms:.3f} ms, plain "
           f"{bf_plain_ms:.1f} ms, bound {bf_bound:.4f} ms ({bf_by}); "
           f"G=1 (ops.best_fit): equal to plain, kernel {bf_g1_ms:.3f} ms")
+    clock.done("1 best_fit kernel")
 
     # -- 2. bfjs kernel vs plain, bench shape and full width ---------------
     for tag, (Gc, Lc, Kc, Qc, Ac, Tc, lam, mu, lo, hi) in {
@@ -1277,6 +1372,7 @@ def main() -> int:
               f"T={Tc}: equal to plain (exact); truncated "
               f"{int(got.truncated.sum())}, dropped {int(got.dropped.sum())}")
         del st, got, ref
+    clock.done("2 bfjs kernel")
 
     # -- 3. vqs and vqs_bf kernels vs plain at the bench shape -------------
     # (benchmarks/sched_micro.py's VQS ensemble config; Qcap = 8192 puts
@@ -1299,6 +1395,7 @@ def main() -> int:
               f"A_max={Ab} T={Tb}: equal to plain (exact); truncated "
               f"{int(got.truncated.sum())}, dropped {int(got.dropped.sum())}")
     del st, got
+    clock.done("3 vqs and vqs_bf kernels")
 
     # -- 3b. bfjs_mr kernel vs plain at the bench shape ---------------------
     # (benchmarks/sched_micro.py's _bench_mr_engines config on 4 members:
@@ -1319,6 +1416,7 @@ def main() -> int:
           f"{float(got.queue_len.double().mean()):.2f}, truncated "
           f"{int(got.truncated.sum())}, dropped {int(got.dropped.sum())}")
     del st, got
+    clock.done("3b bfjs_mr kernel")
 
     # -- 4. bfjs path at full width -------------------------------------------
     Gm, Lm, Km, Qm, Am, Tm = 128, 1000, 16, 4096, 48, 1000
@@ -1359,21 +1457,25 @@ def main() -> int:
     require_equal("bfjs path vs monte_carlo_policy", got, res)
     bfjs_ms = time_ms(lambda: bfjs_kernel.bfjs_cuda(st.n, st.sizes, st.durs,
                                                     **kw), reps=3)
-    bfjs_plain_ms, ref = wall_ms(lambda: bfjs_ref(st.n, st.sizes, st.durs,
-                                                  **kw))
-    require_equal("bfjs path", got, ref)
+    g = PLAIN_MEMBERS
+    sub = (st.n[:g], st.sizes[:g], st.durs[:g])
+    bfjs_plain_ms, ref = wall_ms(lambda: bfjs_ref(*sub, **kw))
+    require_equal(f"bfjs path, first {g} members", members(got, g), ref)
     bfjs_bound, bfjs_by = bound(*bfjs_work(st, got, Lm, Km, Qm, Am))
-    print(f"bfjs path shapes: equal to plain (exact); streams "
-          f"{streams_ms:.1f} ms, kernel {bfjs_ms:.1f} ms, plain "
-          f"{bfjs_plain_ms:.1f} ms, bound {bfjs_bound:.4f} ms ({bfjs_by})")
+    print(f"bfjs path shapes: equal to monte_carlo_policy on all {Gm} "
+          f"members and to plain on members 0..{g - 1} (exact); streams "
+          f"{streams_ms:.1f} ms, kernel {bfjs_ms:.1f} ms ({Gm} members), "
+          f"plain {bfjs_plain_ms:.1f} ms ({g} members), bound "
+          f"{bfjs_bound:.4f} ms ({bfjs_by})")
     rows["bfjs"] = dict(
         name="bfjs", route="cuda",
         source="src/repro_torch/kernels/csrc/bfjs.cu",
         replaces="src/repro/kernels/bfjs/bfjs.py:37",
-        launches=bfjs_launches, max_abs_err=max_abs_err(got, ref),
+        launches=bfjs_launches, max_abs_err=max_abs_err(members(got, g), ref),
         ms=bfjs_ms, plain_ms=bfjs_plain_ms, bound_ms=bfjs_bound,
-        bound_by=bfjs_by, library_ms=None)
-    del st, got, ref, res
+        bound_by=bfjs_by, library_ms=None, plain_members=g)
+    del st, got, ref, res, sub
+    clock.done("4 bfjs path")
 
     # -- 5. vqs and vqs-bf paths at full width --------------------------------
     Jv, Qv = 4, 1024
@@ -1440,6 +1542,7 @@ def main() -> int:
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None, plain_members=g)
         del st, got, ref, res, sub
+    clock.done("5 vqs and vqs-bf paths")
 
     # -- 5b. vqs-bf where it queues: offered load 0.8, so the ring pops of
     # step (iii) are timed (VQS-BF is proven to 2/3 of the load, so drops
@@ -1467,6 +1570,7 @@ def main() -> int:
           f"0..{g - 1} x {Tq} slots (exact)")
     rows["vqs_bf"]["ms_at_load_0_8"] = ms
     del got, sub, sub_got
+    clock.done("5b vqs-bf at load 0.8")
 
     # -- 5c. vqs where it queues: the same streams at offered load 0.8, so
     # the walk over the pending servers and the packing bursts from deep
@@ -1491,6 +1595,13 @@ def main() -> int:
           f"0..{g - 1} x {Tq} slots (exact)")
     rows["vqs"]["ms_at_load_0_8"] = ms
     del st, got, sub, sub_got
+    clock.done("5c vqs at load 0.8")
+
+    # -- 5d. the oracle bridge: the vqs and vqs-bf paths on one trace at full
+    # width, held to the event-driven simulate_trace slot for slot
+    bridge_phase(dev, args.seed, counters, reset_counters, L=Lm, T=Tm,
+                 lam=lam_q, mu=mu)
+    clock.done("5d oracle bridge")
 
     # -- 6. bfjs-mr path at full width ----------------------------------------
     Rm, Qr = 2, 1024
@@ -1556,6 +1667,7 @@ def main() -> int:
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, plain_members=g)
     del st, got, ref, res, sub
+    clock.done("6 bfjs-mr path")
 
     # -- 7. best-fit path ----------------------------------------------------
     reset_counters()
@@ -1581,6 +1693,7 @@ def main() -> int:
         max_abs_err=max_abs_err((assign, new_resid), ref_bf),
         ms=bf_ms, plain_ms=bf_plain_ms, bound_ms=bf_bound, bound_by=bf_by,
         library_ms=None, ms_g1=bf_g1_ms)
+    clock.done("7 best-fit path")
 
     # -- 8. attention kernels vs plain at the serve path's shapes -----------
     rows["decode_attention"] = dict(
@@ -1593,27 +1706,28 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:21",
         **flash_phase(dev, args.seed))
+    clock.done("8 attention kernels")
 
     # -- 9. serve path: llama3-8b at full width --------------------------------
     launches = serve_path(dev, args.seed, counters, reset_counters)
     for name in ("decode_attention", "flash_attention"):
         rows[name]["launches"] = launches[name]
+    clock.done("9 serve path")
 
     # -- 10. ssd_scan kernel vs plain at the Mamba2 prefill shape -------------
-    t_mamba = time.perf_counter()
     rows["ssd_scan"] = dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:22",
         **ssd_phase(dev, args.seed))
+    clock.done("10 ssd_scan kernel")
 
     # -- 11. Mamba2 path: mamba2-130m at full width -----------------------------
     launches = mamba_path(dev, args.seed, counters, reset_counters)
     rows["ssd_scan"]["launches"] = launches["ssd_scan"]
-    print(f"mamba phases: {time.perf_counter() - t_mamba:.1f} s")
+    clock.done("11 mamba path")
 
-    print(f"chip_smoke: all phases passed in "
-          f"{time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: all phases passed in {clock.total():.1f} s")
     order = ("bfjs", "vqs", "vqs_bf", "bfjs_mr", "best_fit",
              "decode_attention", "flash_attention", "ssd_scan")
     print(json.dumps({"kernels": [rows[k] for k in order], "card": card}))

@@ -1,14 +1,14 @@
-"""The reduced configuration set K_RED^(J) of the paper (Eq. 7,
-Definition 5), copied from ``repro.core.partition``.
+"""Universal partition I (paper Eq. 6) and the reduced configuration set
+K_RED^(J) (paper Eq. 7, Definition 5), copied from
+``repro.core.partition``.
 
 Partition I of (1/2^J, 1] into 2J subintervals (m = 0..J-1):
     I_{2m}   = (2/3 * 2^-m , 2^-m]          "even" types
     I_{2m+1} = (1/2 * 2^-m , 2/3 * 2^-m]    "odd"  types
 Jobs with size <= 2^-J map to the last type (2J-1) with size rounded UP to
 2^-J (paper Section V.A).  The batched classifier of the engines is
-``core.engine.ops.vq_type_of_grid``; :class:`PartitionI` (a copy of
-``repro.core.partition.PartitionI``) is the host-side one the serving
-admission controller uses.
+``core.engine.ops.vq_type_of_grid``; :class:`PartitionI` is the host-side
+one the event-driven schedulers and the serving admission controller use.
 
 All boundaries are evaluated in exact integer arithmetic on the quantize.RES
 grid:  size in I_{2m}  <=>  3*s > 2*(RES >> m)  and  s <= (RES >> m).
@@ -120,3 +120,22 @@ def k_red(J: int) -> np.ndarray:
     if out.shape != (4 * J - 4, 2 * J):
         raise AssertionError(f"k_red({J}) has shape {out.shape}")
     return out
+
+
+def k_red_is_feasible(J: int) -> bool:
+    """Sanity check: every configuration packs within capacity when each
+    type-j job takes its upper-rounded size sup I_j."""
+    part = PartitionI(J)
+    confs = k_red(J)
+    uppers = np.array([part.upper_bound_int(j) for j in range(2 * J)])
+    tot = confs @ uppers
+    # +J: integer rounding slack of the 2/3 bounds
+    return bool(np.all(tot <= RES + J))
+
+
+def max_weight_config(J: int, vq_sizes: np.ndarray) -> tuple[int, np.ndarray]:
+    """argmax_{k in K_RED} <k, Q> (paper Eq. 8). Returns (row index, config)."""
+    confs = k_red(J)
+    w = confs @ np.asarray(vq_sizes, dtype=np.int64)
+    i = int(np.argmax(w))
+    return i, confs[i]

@@ -1,8 +1,9 @@
 """Integer size grid (copy of ``repro.core.quantize``).
 
-All capacity arithmetic of the VQS engines is exact integer math on a
-``RES = 2**16`` grid: a job of normalized size ``r`` occupies
-``round(r * RES)`` units of a server whose capacity is ``RES`` units.
+All capacity arithmetic of the event-driven engine and the VQS engines is
+exact integer math on a ``RES = 2**16`` grid: a job of normalized size ``r``
+occupies ``round(r * RES)`` units of a server whose capacity is
+``capacity * RES`` units.
 """
 from __future__ import annotations
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..cluster.admission import AdmissionController, PendingJob
+from ..core.engine.supervisor import InvariantViolation
 from ..core.quantize import RES
 from ..device import resolve_device
 from ..models import model as M
@@ -33,17 +34,6 @@ from ..models.config import ModelConfig
 
 #: ROADMAP item that ports the device-resident admission controller.
 LIVE_ADMISSION_TODO = "ROADMAP queue 1 item 10 (serving/live.py)"
-
-
-class InvariantViolation(ValueError):
-    """A runtime conservation law failed (a copy of
-    ``repro.core.engine.supervisor.InvariantViolation``).  Subclasses
-    ``ValueError`` so call sites that expect ``ValueError`` on bookkeeping
-    corruption keep working."""
-
-    def __init__(self, message: str, *, invariant: str | None = None):
-        self.invariant = invariant
-        super().__init__(message)
 
 
 @dataclass

@@ -157,7 +157,11 @@ def test_import_leaves_jax_and_repro_unloaded():
         "'serving.engine', 'kernels.decode_attention.decode_attention', "
         "'kernels.flash_attention.flash_attention', 'models.mamba2', "
         "'configs.mamba2_130m', 'kernels.ssd_scan.ssd_scan', "
-        "'kernels.ssd_scan.ops', 'kernels.ssd_scan.ref'):\n"
+        "'kernels.ssd_scan.ops', 'kernels.ssd_scan.ref', "
+        "'core.fenwick', 'core.queues', 'core.cluster_state', "
+        "'core.distributions', 'core.base', 'core.simulator', "
+        "'core.best_fit', 'core.fifo', 'core.vqs', 'core.vqs_bf', "
+        "'core.stability', 'core.maxweight', 'core.engine.supervisor'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -165,6 +169,31 @@ def test_import_leaves_jax_and_repro_unloaded():
                          env={**os.environ, "PYTHONPATH": str(SRC)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("corrupt,invariant", [
+    ("residual", "occupancy_capacity"), ("overfull", "queue_nonneg")])
+def test_invariant_violation_is_one_class(corrupt, invariant):
+    """The serving engine and the event-driven cluster raise the one
+    InvariantViolation of core.engine.supervisor, naming the law."""
+    from repro_torch.core import RES, Cluster, Job
+    from repro_torch.core.engine import supervisor
+    from repro_torch.serving import engine as serving_engine
+    assert serving_engine.InvariantViolation is \
+        supervisor.InvariantViolation
+    cl = Cluster(3)
+    cl.place(1, Job(0, RES // 4, RES // 4, -1, 0), 10)
+    cl.check_invariants()
+    if corrupt == "residual":
+        cl.residual[1] += 1
+    else:                       # occupied past capacity, residuals agreeing
+        cl.jobs[2][1] = Job(1, RES + 5, RES + 5, -1, 0)
+        cl.residual[2] = -5
+    with pytest.raises(supervisor.InvariantViolation) as err:
+        cl.check_invariants()
+    assert err.value.invariant == invariant
+    assert isinstance(err.value, ValueError)
+    assert err.value.chunk_index is None
 
 
 def test_vqs_policies_match_jax_through_the_registry():
