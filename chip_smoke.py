@@ -25,6 +25,17 @@ port's paths through the entry points a user calls:
     equal the port's event-driven ``simulate_trace`` (host numpy) slot for
     slot, with the departures, nothing truncated or dropped, and one launch
     of the path's own kernel;
+  * the trace path: the paper's Google-trace experiment (Section VII.B,
+    Fig. 5) at ``benchmarks/fig5.py``'s full-scale statistics and cluster
+    (L = 640, mean duration 6000, traffic scaling 1.0), tasks and horizon
+    cut 10x to 100,000 over 130,000 slots: the port's
+    ``synthesize_google_like_trace`` from ``--seed``, collapsed through the
+    ``"cuda"`` vqs and vqs-bf engines (J = 5, K = 32) and uncollapsed
+    through bfjs-mr (K = 64, Qcap = 8192), each one launch of its own
+    kernel with nothing truncated or dropped and equal to its host oracle
+    (``simulate_trace``, ``simulate_mr_trace``) on the first ``TRACE_H``
+    slots; then the four policies' ``"cuda"`` and ``"reference"`` engines
+    on streams made on the card, equal on every field;
   * bfjs-mr path: ``monte_carlo_policy(..., policy="bfjs-mr",
     engine="cuda")`` — the same cluster with two resources (cpu, mem),
     each demand U[0.1, 0.9] independently, at offered load 0.8 per
@@ -61,17 +72,20 @@ port's paths through the entry points a user calls:
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; it must launch its own kernel and no other.  The
 scheduler kernels are held to their plain versions on the first
-``PLAIN_MEMBERS`` members of each path's streams (the plain versions are
-host-bound and set most of the run's time).  Each phase prints its host
-seconds on a line of its own, and the "all phases passed" line the total.
-The second-to-last line of stdout is a JSON object with one entry per kernel,
-eight, ssd_scan last (launches, error against the plain version, kernel,
-plain, bound and library times; the attention kernels' and SDPA's times
-are device times of a CUDA graph of calls, since an eager decode call is
-bound by the host; best_fit's row adds ``ms_g1``, the single-problem
-``ops.best_fit`` at the same law); the last line is ``{"ok": true,
-"device": ...}``.  Any failed phase raises, and the script exits non-zero
-without a result — also when no CUDA device is present.
+``PLAIN_MEMBERS`` members and ``PLAIN_SLOTS`` slots of each path's
+streams (the plain versions are bound by host launches a slot and set
+most of the run's time; the slots were cut from 1000 to 250, and the
+bench-shape comparisons' horizons halved (``BENCH_SLOTS``), when the
+trace path came in, to keep the run inside its limit on a slow host).
+Each phase prints its host seconds on a line of its own, and the "all phases
+passed" line the total.  The second-to-last line of stdout is a JSON object
+with one entry per kernel, eight, ssd_scan last (launches, error against the
+plain version, kernel, plain, bound and library times; the attention
+kernels' and SDPA's times are device times of a CUDA graph of calls, since
+an eager decode call is bound by the host; best_fit's row adds ``ms_g1``,
+the single-problem ``ops.best_fit`` at the same law); the last line is
+``{"ok": true, "device": ...}``.  Any failed phase raises, and the script
+exits non-zero without a result — also when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -99,11 +113,22 @@ FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
 TF32_TC_OPS_PER_S = 495e12
 
-#: Members of the full-width streams the bfjs, VQS-family and bfjs_mr
-#: kernels are held against their plain versions on (members are
-#: independent, so the first ones of the ensemble are an exact
-#: sub-problem); each kernel is held to ``monte_carlo_policy`` on all 128.
+#: Members and slots of the full-width streams the bfjs, VQS-family and
+#: bfjs_mr kernels are held against their plain versions on: the kernel
+#: and the plain version both run the first PLAIN_MEMBERS members over the
+#: first PLAIN_SLOTS slots (members are independent and trajectories
+#: causal, so that is an exact sub-problem; 250 slots are 2.5 mean
+#: service times, the cluster ~92% filled).  The plain versions are bound
+#: by host launches a slot, not by members, so the slots set their time.
+#: Each kernel is held to ``monte_carlo_policy`` on all 128 members x
+#: 1000 slots.
 PLAIN_MEMBERS = 8
+PLAIN_SLOTS = 250
+
+#: Horizon of the bench-shape comparisons of phases 2, 3 and 3b (16
+#: servers; ``benchmarks/sched_micro.py`` runs 2000 and 3000 slots), cut
+#: for the same reason.
+BENCH_SLOTS = 1000
 
 #: Seeds whose weights and 256-token prompt the bf16 teacher-forced gate
 #: runs on: ``--seed`` and the ones after it.
@@ -118,6 +143,18 @@ BF16_GATE_SEEDS = 3
 #: that 1% error (0.023-0.027), while a decode mask that drops the current
 #: token reads 0.36-0.48.
 GATE_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+
+
+def uniform(lo: float, hi: float, R: int = 1):
+    """A stream sampler of sizes (R == 1) or R-resource demands, each
+    U[lo, hi], drawn with the stream's generator on its device."""
+    import torch
+
+    def sampler(gen, n, device):
+        shape = (n,) if R == 1 else (n, R)
+        return torch.rand(shape, generator=gen, device=device) \
+            * (hi - lo) + lo
+    return sampler
 
 
 def gpu_name_and_power_limit() -> str:
@@ -202,11 +239,6 @@ def require_equal(what: str, a, b) -> None:
         if x is not None and not torch.equal(x, y):
             raise AssertionError(f"{what}: field {i} differs from the plain "
                                  f"version (max abs err {max_abs_err(a, b)})")
-
-
-def members(res, g: int):
-    """The first ``g`` members of a batched result."""
-    return type(res)(*(x[:g] if x is not None else None for x in res))
 
 
 def placements(streams, res) -> tuple[int, int]:
@@ -381,6 +413,185 @@ def bridge_phase(dev, seed: int, counters, reset_counters, L: int = 1000,
               f"{mean_q:.3f}; departed {ref.departed} of {ref.arrived}; "
               f"truncated 0, dropped 0")
         del st, res
+
+
+#: The trace path's host-oracle horizons: the first H slots of the trace
+#: (the trajectories are causal, so a prefix of the card's run is the run
+#: of the prefix).  Each is past one mean duration (~4,950 slots), so
+#: departures are compared on a full cluster.  At --seed 0 the first queue
+#: forms at slot ~65,100 (the second diurnal peak; the long-tailed
+#: durations keep the cluster filling past the first), so the vqs oracle
+#: runs to 70,000 slots and compares packing and queue order there (43-53
+#: s on the card's hosts); vqs-bf's oracle, 1.3x as costly, stops at
+#: 40,000 and bfjs-mr's, which never queues on this trace, at 30,000.
+#: Together they fit the phase's 150 s on a slow host.
+TRACE_H = {"vqs": 70_000, "vqs-bf": 40_000, "bfjs-mr": 30_000}
+
+
+def once_ms(fn) -> float:
+    """CUDA-event milliseconds of one call (the caller has warmed it)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def trace_phase(dev, seed: int, counters, reset_counters, card: str,
+                n_tasks: int = 100_000, T: int = 130_000, L: int = 640,
+                trace_h: dict | None = None) -> None:
+    """The paper's Google-trace experiment (Section VII.B, Fig. 5) on the
+    card, through the user's entry points with ``strict=True``.
+
+    The port's ``synthesize_google_like_trace`` at ``benchmarks/fig5.py``'s
+    full-scale per-task statistics and cluster (L = 640, mean duration
+    6000, traffic scaling 1.0: offered load ~0.8), with tasks and horizon
+    both cut 10x (the arrival density stays 0.77 a slot).  The collapsed
+    max(cpu, mem) trace runs through the ``"cuda"`` vqs and vqs-bf engines
+    (J = 5, K = 32: the K >= 2**J packing bound of
+    ``examples/trace_replay.py``), the uncollapsed (cpu, mem) trace
+    through bfjs-mr (K = 64, Qcap = 8192, ``work_steps`` 64); each run
+    launches its own kernel once and no other, with nothing truncated or
+    dropped, and its first ``trace_h[policy]`` slots equal the host
+    oracle's (``simulate_trace(VQS(5))`` / ``VQSBF(5)``, and
+    ``simulate_mr_trace(MultiResourceBFJS(640, 2))``).  Then the four
+    policies' ``"cuda"`` and ``"reference"`` engines run on streams made on
+    the card at the parity matrix's shapes and must be equal on every
+    field."""
+    from repro_torch.core import (VQS, VQSBF, collapse_resources,
+                                  empirical_size_stats, simulate_trace,
+                                  synthesize_google_like_trace)
+    from repro_torch.core.engine import (Workload, monte_carlo_policy,
+                                         run_policy_streams,
+                                         streams_from_trace)
+    from repro_torch.core.engine.bfjs import _batched
+    from repro_torch.core.multi_resource import (MultiResourceBFJS,
+                                                 simulate_mr_trace)
+    from repro_torch.kernels.bfjs_mr.ops import bfjs_mr_simulate
+    from repro_torch.kernels.vqs.ops import vqs_simulate
+    from repro_torch.kernels.vqs_bf.ops import vqs_bf_simulate
+
+    trace_h = trace_h or TRACE_H
+    t_phase = time.perf_counter()
+    trace = synthesize_google_like_trace(n_tasks, T, seed=seed,
+                                         mean_duration=6000.0)
+    sizes = collapse_resources(trace)
+    demands = np.stack([trace.cpu, trace.mem], axis=1)
+    stats = empirical_size_stats(sizes)
+    print(f"trace: {len(trace)} tasks over {T} slots "
+          f"({len(trace) / T:.4f} a slot), mean duration "
+          f"{float(trace.durations.mean()):.1f} slots; collapsed sizes: "
+          f"{stats['distinct_values']} distinct values (Fig. 1), mean "
+          f"{stats['mean']:.4f}, p50 {stats['p50']:.4f}, p99 "
+          f"{stats['p99']:.4f}, max {stats['max']:.4f}")
+    collapsed = streams_from_trace(trace, horizon=T, device=dev)
+    vector = streams_from_trace(trace, collapse=False, num_resources=2,
+                                horizon=T, device=dev)
+    A_max = int(collapsed.sizes.shape[1])
+    paths = (
+        ("vqs", "vqs", collapsed, vqs_simulate,
+         dict(J=5, L=L, K=32, Qcap=1 << 15, A_max=A_max)),
+        ("vqs-bf", "vqs_bf", collapsed, vqs_bf_simulate,
+         dict(J=5, L=L, K=32, Qcap=1 << 15, A_max=A_max, work_steps=64)),
+        ("bfjs-mr", "bfjs_mr", vector, bfjs_mr_simulate,
+         dict(L=L, K=64, Qcap=8192, A_max=A_max, work_steps=64)))
+    for policy, name, st, kernel, cfg in paths:
+        tag = f"trace {policy}"
+        reset_counters()
+        wall, res = wall_ms(lambda: run_policy_streams(
+            st, policy=policy, engine="cuda", strict=True, **cfg))
+        launches = {n: c.count for n, c in counters.items()}
+        if launches[name] != 1 or any(c for n, c in launches.items()
+                                      if n != name):
+            raise AssertionError(f"{tag}: launches {launches}, expected one "
+                                 f"of {name} and no other")
+        if int(res.truncated) or int(res.dropped):
+            raise AssertionError(f"{tag}: truncated {int(res.truncated)}, "
+                                 f"dropped {int(res.dropped)}")
+        extra = {"capacity": (1.0, 1.0)} if policy == "bfjs-mr" else {}
+        k_ms = once_ms(lambda: kernel(_batched(st), **cfg, **extra))
+        qlen = res.queue_len.cpu().numpy()
+        busy = np.flatnonzero(qlen > 0)
+        print(f"{tag} L={L} T={T} {cfg}: engine {wall:.1f} ms (wall), "
+              f"kernel {k_ms:.1f} ms; {name} launches 1; mean queue "
+              f"{float(qlen.mean()):.4f} (max {int(qlen.max())}, first "
+              f"queued slot {int(busy[0]) if busy.size else None}); departed "
+              f"{int(res.departed[-1])} of {len(trace)}; truncated 0, "
+              f"dropped 0 [{card}]")
+
+        H = trace_h[policy]
+        m = trace.arrival_slots < H
+        t0 = time.perf_counter()
+        if policy == "bfjs-mr":
+            ref = simulate_mr_trace(MultiResourceBFJS(L, 2),
+                                    trace.arrival_slots[m], demands[m],
+                                    trace.durations[m], horizon=H)
+            want = {"queue_len": ref.queue_lens,
+                    "occupancy": ref.extras["occupancy"].astype(np.float32),
+                    "departed": ref.extras["departed_cum"]}
+        else:
+            sched = VQS if policy == "vqs" else VQSBF
+            ref = simulate_trace(sched(J=5), L=L,
+                                 arrival_slots=trace.arrival_slots[m],
+                                 sizes=sizes[m], durations=trace.durations[m],
+                                 horizon=H, seed=seed, record_every=1)
+            want = {"queue_len": ref.queue_lens,
+                    "departed": np.array([ref.departed])}
+        host_s = time.perf_counter() - t0
+        for f, w in want.items():
+            got = getattr(res, f).cpu().numpy()[:H]
+            if f == "departed" and policy != "bfjs-mr":
+                got = got[-1:]
+            diff = np.flatnonzero((got != w).reshape(len(w), -1).any(1))
+            if diff.size:
+                t = int(diff[0])
+                raise AssertionError(f"{tag}: {f} differs from the oracle "
+                                     f"first at slot {t} of {H}")
+        print(f"{tag}: equal to the host oracle on slots 0..{H - 1} "
+              f"(H = {H}; {', '.join(want)}); oracle {host_s:.2f} s "
+              f"(host); mean queue over H {float(qlen[:H].mean()):.4f}; "
+              f"departed {int(res.departed[H - 1])} of "
+              f"{int(m.sum())} arrived [{card}]")
+        del res
+
+    # the oracles meet the kernels directly: "cuda" and "reference" on
+    # streams made on the card, at the parity matrix's shapes
+    matrix = {
+        "bfjs": (Workload(lam=1.2, mu=0.05, sampler=uniform(0.05, 0.5)),
+                 dict(L=4, K=6, Qcap=64, A_max=5, horizon=150)),
+        "vqs": (Workload(lam=1.0, mu=0.05, sampler=uniform(0.05, 0.5)),
+                dict(L=4, K=8, Qcap=64, A_max=5, horizon=150, J=3)),
+        "bfjs-mr": (Workload(lam=0.5, mu=0.05,
+                             sampler=uniform(0.05, 0.5, 2),
+                             num_resources=2, capacity=(1.0, 0.75)),
+                    dict(L=4, K=8, Qcap=64, A_max=5, horizon=150,
+                         work_steps=24)),
+        "vqs-bf": (Workload(lam=1.0, mu=0.05, sampler=uniform(0.05, 0.5)),
+                   dict(L=4, K=8, Qcap=64, A_max=5, horizon=150, J=3,
+                        work_steps=48))}
+    for policy, (wl, cfg) in matrix.items():
+        seeds = [seed, seed + 1]
+        t0 = time.perf_counter()
+        ref = monte_carlo_policy(wl, seeds, policy=policy,
+                                 engine="reference", device=dev, **cfg)
+        host_s = time.perf_counter() - t0
+        got = monte_carlo_policy(wl, seeds, policy=policy, engine="cuda",
+                                 strict=True, device=dev, **cfg)
+        if got.queue_len.device != ref.queue_len.device \
+                or ref.queue_len.device.type != dev.type:
+            raise AssertionError(f"{policy}: a result left the card")
+        require_equal(f"{policy} cuda vs reference on card-made streams",
+                      got, ref)
+        print(f"{policy} cuda == reference on card-made streams ({cfg}, "
+              f"seeds {seeds}): every field equal; mean queue "
+              f"{float(ref.queue_len.double().mean()):.3f}, truncated "
+              f"{int(got.truncated.sum())}; oracle {host_s:.2f} s (host) "
+              f"[{card}]")
+    print(f"trace phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
@@ -1307,13 +1518,6 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     clock.done("0 set-up and build")
 
-    def uniform(lo, hi, R=1):
-        def sampler(gen, n, device):
-            shape = (n,) if R == 1 else (n, R)
-            return torch.rand(shape, generator=gen, device=device) \
-                * (hi - lo) + lo
-        return sampler
-
     def anti_correlated(gen, n, device):
         """(cpu, mem) demands: one resource U(0.45, 0.55), the other
         U(0.05, 0.1), each half the time (benchmarks/sched_micro.py
@@ -1356,8 +1560,10 @@ def main() -> int:
     clock.done("1 best_fit kernel")
 
     # -- 2. bfjs kernel vs plain, bench shape and full width ---------------
+    # (the bench shape's horizon cut from 2000 to BENCH_SLOTS, as in 3 and
+    # 3b: the plain versions are bound by host launches a slot)
     for tag, (Gc, Lc, Kc, Qc, Ac, Tc, lam, mu, lo, hi) in {
-            "bench": (8, 16, 24, 512, 8, 2000, 1.5, 0.01, 0.05, 0.5),
+            "bench": (8, 16, 24, 512, 8, BENCH_SLOTS, 1.5, 0.01, 0.05, 0.5),
             "full-width": (2, 1000, 16, 4096, 48, 200, 17.0, 0.01, 0.1,
                            0.9)}.items():
         st = ensemble_streams(range(args.seed, args.seed + Gc), lam, mu,
@@ -1375,9 +1581,9 @@ def main() -> int:
     clock.done("2 bfjs kernel")
 
     # -- 3. vqs and vqs_bf kernels vs plain at the bench shape -------------
-    # (benchmarks/sched_micro.py's VQS ensemble config; Qcap = 8192 puts
-    # the rings in the global workspace)
-    Gb, Lb, Kb, Qb, Ab, Tb, Jb = 8, 16, 24, 8192, 8, 2000, 4
+    # (benchmarks/sched_micro.py's VQS ensemble config, its 2000 slots cut
+    # to BENCH_SLOTS; Qcap = 8192 puts the rings in the global workspace)
+    Gb, Lb, Kb, Qb, Ab, Tb, Jb = 8, 16, 24, 8192, 8, BENCH_SLOTS, 4
     st = ensemble_streams(range(args.seed, args.seed + Gb), 1.5, 0.01,
                           uniform(0.05, 0.5), L=Lb, K=Kb, A_max=Ab,
                           horizon=Tb, device=dev)
@@ -1398,10 +1604,10 @@ def main() -> int:
     clock.done("3 vqs and vqs_bf kernels")
 
     # -- 3b. bfjs_mr kernel vs plain at the bench shape ---------------------
-    # (benchmarks/sched_micro.py's _bench_mr_engines config on 4 members:
-    # the anti-correlated law, where alignment packing differs most from
-    # the max-collapse)
-    Gb, Lb, Kb, Qb, Ab, Tb = 4, 16, 16, 512, 8, 3000
+    # (benchmarks/sched_micro.py's _bench_mr_engines config on 4 members,
+    # its 3000 slots cut to 1.5 x BENCH_SLOTS: the anti-correlated law,
+    # where alignment packing differs most from the max-collapse)
+    Gb, Lb, Kb, Qb, Ab, Tb = 4, 16, 16, 512, 8, 3 * BENCH_SLOTS // 2
     st = ensemble_streams(range(args.seed, args.seed + Gb), 1.2, 0.05,
                           anti_correlated, L=Lb, K=Kb, A_max=Ab, horizon=Tb,
                           device=dev, num_resources=2)
@@ -1457,24 +1663,26 @@ def main() -> int:
     require_equal("bfjs path vs monte_carlo_policy", got, res)
     bfjs_ms = time_ms(lambda: bfjs_kernel.bfjs_cuda(st.n, st.sizes, st.durs,
                                                     **kw), reps=3)
-    g = PLAIN_MEMBERS
-    sub = (st.n[:g], st.sizes[:g], st.durs[:g])
+    g, Tp = PLAIN_MEMBERS, PLAIN_SLOTS
+    sub = (st.n[:g, :Tp], st.sizes[:g, :Tp], st.durs[:g, :Tp])
+    sub_got = bfjs_kernel.bfjs_cuda(*sub, **kw)
     bfjs_plain_ms, ref = wall_ms(lambda: bfjs_ref(*sub, **kw))
-    require_equal(f"bfjs path, first {g} members", members(got, g), ref)
+    require_equal(f"bfjs path, first {g} members x {Tp} slots", sub_got,
+                  ref)
     bfjs_bound, bfjs_by = bound(*bfjs_work(st, got, Lm, Km, Qm, Am))
     print(f"bfjs path shapes: equal to monte_carlo_policy on all {Gm} "
-          f"members and to plain on members 0..{g - 1} (exact); streams "
-          f"{streams_ms:.1f} ms, kernel {bfjs_ms:.1f} ms ({Gm} members), "
-          f"plain {bfjs_plain_ms:.1f} ms ({g} members), bound "
-          f"{bfjs_bound:.4f} ms ({bfjs_by})")
+          f"members and to plain on members 0..{g - 1} x {Tp} slots "
+          f"(exact); streams {streams_ms:.1f} ms, kernel {bfjs_ms:.1f} ms "
+          f"({Gm} members), plain {bfjs_plain_ms:.1f} ms ({g} members x "
+          f"{Tp} slots), bound {bfjs_bound:.4f} ms ({bfjs_by})")
     rows["bfjs"] = dict(
         name="bfjs", route="cuda",
         source="src/repro_torch/kernels/csrc/bfjs.cu",
         replaces="src/repro/kernels/bfjs/bfjs.py:37",
-        launches=bfjs_launches, max_abs_err=max_abs_err(members(got, g), ref),
+        launches=bfjs_launches, max_abs_err=max_abs_err(sub_got, ref),
         ms=bfjs_ms, plain_ms=bfjs_plain_ms, bound_ms=bfjs_bound,
-        bound_by=bfjs_by, library_ms=None, plain_members=g)
-    del st, got, ref, res, sub
+        bound_by=bfjs_by, library_ms=None, plain_members=g, plain_slots=Tp)
+    del st, got, ref, res, sub, sub_got
     clock.done("4 bfjs path")
 
     # -- 5. vqs and vqs-bf paths at full width --------------------------------
@@ -1519,29 +1727,29 @@ def main() -> int:
         got = fn(st.n, st.sizes, st.durs, **kw)
         require_equal(f"{policy} path vs monte_carlo_policy", got, res)
         ms = time_ms(lambda: fn(st.n, st.sizes, st.durs, **kw), reps=3)
-        g = PLAIN_MEMBERS
-        sub = (st.n[:g], st.sizes[:g], st.durs[:g])
+        g, Tp = PLAIN_MEMBERS, PLAIN_SLOTS
+        sub = (st.n[:g, :Tp], st.sizes[:g, :Tp], st.durs[:g, :Tp])
+        sub_got = fn(*sub, **kw)
         plain_ms, ref = wall_ms(lambda: plain(*sub, **kw))
-        require_equal(f"{policy} path, first {g} members", members(got, g),
-                      ref)
+        require_equal(f"{policy} path, first {g} members x {Tp} slots",
+                      sub_got, ref)
         sub_ms = time_ms(lambda: fn(*sub, **kw), reps=3)
         b_ms, b_by = bound(*vqs_work(st, got, Lm, Jv, name == "vqs_bf"))
         shape = (Jv, Lm, Km, Qv, Am)
         ws = getattr(vqs_kernel.load(name), f"{name}_workspace_bytes")
         print(f"{policy} path shapes: equal to plain on members 0..{g - 1} "
-              f"(exact); streams {streams_ms:.1f} ms, kernel {ms:.1f} ms "
-              f"({Gm} members) / {sub_ms:.1f} ms ({g} members), plain "
-              f"{plain_ms:.1f} ms ({g} members), bound {b_ms:.4f} ms "
-              f"({b_by}); shared memory "
+              f"x {Tp} slots (exact); streams {streams_ms:.1f} ms, kernel "
+              f"{ms:.1f} ms ({Gm} members) / {sub_ms:.1f} ms ({g} members x "
+              f"{Tp} slots), plain {plain_ms:.1f} ms ({g} members x {Tp} "
+              f"slots), bound {b_ms:.4f} ms ({b_by}); shared memory "
               f"{vqs_kernel.shared_bytes(name, *shape)} B a block, "
               f"workspace {ws(*shape)} B a member")
         rows[name] = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches,
-            max_abs_err=max_abs_err(members(got, g), ref), ms=ms,
+            launches=launches, max_abs_err=max_abs_err(sub_got, ref), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None, plain_members=g)
-        del st, got, ref, res, sub
+            library_ms=None, plain_members=g, plain_slots=Tp)
+        del st, got, ref, res, sub, sub_got
     clock.done("5 vqs and vqs-bf paths")
 
     # -- 5b. vqs-bf where it queues: offered load 0.8, so the ring pops of
@@ -1603,6 +1811,12 @@ def main() -> int:
                  lam=lam_q, mu=mu)
     clock.done("5d oracle bridge")
 
+    # -- 5e. the trace path: the paper's Google-trace experiment through the
+    # vqs, vqs-bf and bfjs-mr kernels, held to the host oracles; the four
+    # policies' "cuda" and "reference" engines on card-made streams
+    trace_phase(dev, args.seed, counters, reset_counters, card)
+    clock.done("5e trace path")
+
     # -- 6. bfjs-mr path at full width ----------------------------------------
     Rm, Qr = 2, 1024
     lam_r = 0.8 * Lm * mu / size_mean          # offered load 0.8: lam = 16
@@ -1643,30 +1857,33 @@ def main() -> int:
     require_equal("bfjs-mr path vs monte_carlo_policy", got, res)
     ms = time_ms(lambda: bfjs_mr_kernel.bfjs_mr_cuda(st.n, st.sizes,
                                                      st.durs, **kw), reps=3)
-    g = PLAIN_MEMBERS
-    sub = (st.n[:g], st.sizes[:g], st.durs[:g])
+    g, Tp = PLAIN_MEMBERS, PLAIN_SLOTS
+    sub = (st.n[:g, :Tp], st.sizes[:g, :Tp], st.durs[:g, :Tp])
+    sub_got = bfjs_mr_kernel.bfjs_mr_cuda(*sub, **kw)
     plain_ms, ref = wall_ms(lambda: bfjs_mr_ref(*sub, **kw))
-    require_equal(f"bfjs-mr path, first {g} members", members(got, g), ref)
+    require_equal(f"bfjs-mr path, first {g} members x {Tp} slots", sub_got,
+                  ref)
     sub_ms = time_ms(lambda: bfjs_mr_kernel.bfjs_mr_cuda(*sub, **kw),
                      reps=3)
     b_ms, b_by = bound(*mr_work(st, got, Lm))
     shape = (Lm, Km, Qr, Am, Rm)
     lib = bfjs_mr_kernel.load()
-    print(f"bfjs-mr path shapes: equal to plain on members 0..{g - 1} "
-          f"(exact, truncated {int(ref.truncated.sum())} in both); streams "
-          f"{streams_ms:.1f} ms, kernel {ms:.1f} ms ({Gm} members) / "
-          f"{sub_ms:.1f} ms ({g} members), plain {plain_ms:.1f} ms ({g} "
-          f"members), bound {b_ms:.4f} ms ({b_by}); shared memory "
+    print(f"bfjs-mr path shapes: equal to plain on members 0..{g - 1} x "
+          f"{Tp} slots (exact, truncated {int(ref.truncated.sum())} in "
+          f"both); streams {streams_ms:.1f} ms, kernel {ms:.1f} ms ({Gm} "
+          f"members) / {sub_ms:.1f} ms ({g} members x {Tp} slots), plain "
+          f"{plain_ms:.1f} ms ({g} members x {Tp} slots), bound "
+          f"{b_ms:.4f} ms ({b_by}); shared memory "
           f"{lib.bfjs_mr_shared_bytes(*shape)} B a block, workspace "
           f"{lib.bfjs_mr_workspace_bytes(*shape)} B a member")
     rows["bfjs_mr"] = dict(
         name="bfjs_mr", route="cuda",
         source="src/repro_torch/kernels/csrc/bfjs_mr.cu",
         replaces="src/repro/kernels/bfjs_mr/bfjs_mr.py:46",
-        launches=mr_launches, max_abs_err=max_abs_err(members(got, g), ref),
+        launches=mr_launches, max_abs_err=max_abs_err(sub_got, ref),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, plain_members=g)
-    del st, got, ref, res, sub
+        library_ms=None, plain_members=g, plain_slots=Tp)
+    del st, got, ref, res, sub, sub_got
     clock.done("6 bfjs-mr path")
 
     # -- 7. best-fit path ----------------------------------------------------

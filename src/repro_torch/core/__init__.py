@@ -19,6 +19,11 @@ from .queues import Job, SortedJobQueue, VirtualQueues
 from .simulator import SimResult, simulate, simulate_trace
 from .stability import (enumerate_configs, maximal_configs, rho_bounds,
                         rho_star_discrete, rho_star_upper_bound)
+from .trace import (MachineEvents, Trace, collapse_resources,
+                    empirical_size_stats, iter_trace_csv,
+                    load_machine_events_csv, load_trace_csv,
+                    scale_arrivals, scan_trace_maxima,
+                    synthesize_google_like_trace)
 from .vqs import VQS
 from .vqs_bf import VQSBF
 
@@ -30,5 +35,8 @@ __all__ = [
     "RES", "TWO_THIRDS", "from_grid", "to_grid", "Job", "SortedJobQueue",
     "VirtualQueues", "SimResult", "simulate", "simulate_trace",
     "enumerate_configs", "maximal_configs", "rho_bounds",
-    "rho_star_discrete", "rho_star_upper_bound", "VQS", "VQSBF",
+    "rho_star_discrete", "rho_star_upper_bound", "MachineEvents", "Trace",
+    "collapse_resources", "empirical_size_stats", "iter_trace_csv",
+    "load_machine_events_csv", "load_trace_csv", "scale_arrivals",
+    "scan_trace_maxima", "synthesize_google_like_trace", "VQS", "VQSBF",
 ]

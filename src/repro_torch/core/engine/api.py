@@ -11,9 +11,11 @@
     monte_carlo_policy(wl2, seeds=range(128), policy="bfjs-mr",
                        engine="cuda", L=1000, ...)   # wl2: R = 2 resources
 
-``engine`` is ``"scan"`` (batched plain torch ops) or ``"cuda"`` (the
-policy's hand-written kernel); "cuda" bit-matches "scan".  A policy whose
-host oracle is ported also takes ``"reference"`` (so far "bfjs-mr").
+``engine`` is ``"scan"`` (batched plain torch ops), ``"cuda"`` (the
+policy's hand-written kernel; it bit-matches "scan") or ``"reference"``
+(the policy's oracle on the host, the behavioural anchor the other two
+equal whenever ``truncated == 0``).  bfjs's oracle is defined by its own
+draws, so, as in the JAX package, ``run_policy_streams`` refuses it.
 Randomness is seeded by integers — one per ensemble member — in place of
 the JAX package's PRNG keys.  Entry points run on the card unless
 ``device="cpu"`` is passed.
@@ -27,8 +29,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from . import bfjs, bfjs_mr, vqs
-from .bfjs import (monte_carlo_bfjs_workload, run_bfjs_trace,
+from .bfjs import (ENGINES, monte_carlo_bfjs_workload, run_bfjs_trace,
                    run_bfjs_workload)
 from .bfjs_mr import (monte_carlo_bfjs_mr_workload, run_bfjs_mr_trace,
                       run_bfjs_mr_workload)
@@ -46,9 +47,6 @@ class PolicySpec:
     run: Callable[..., PolicyResult]          # (workload, seed, ...)
     run_streams: Callable[..., PolicyResult]  # (streams, ...)
     monte_carlo: Callable[..., PolicyResult]  # (workload, seeds, ...)
-    engines: tuple[str, ...] = bfjs.ENGINES   # the engines it runs
-    reference_todo: str | None = None  # why engine="reference" is not
-    #                                    ported yet, where it is not
 
 
 _POLICIES: dict[str, PolicySpec] = {}
@@ -75,13 +73,10 @@ def get_policy(policy: str) -> PolicySpec:
 
 
 def _check_engine(engine: str, policy: str) -> None:
-    spec = get_policy(policy)
-    if engine in spec.engines:
-        return
-    if engine == "reference" and spec.reference_todo:
-        raise NotImplementedError(spec.reference_todo)
-    raise ValueError(f"unknown engine {engine!r} for policy {policy!r}; "
-                     f"expected one of {', '.join(spec.engines)}")
+    get_policy(policy)
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected one of "
+                         f"{', '.join(ENGINES)}")
 
 
 def _not_ported(mesh=None, devices=None, chunk=None, checkpoint_dir=None,
@@ -106,28 +101,24 @@ register_policy(PolicySpec(
     run=run_bfjs_workload,
     run_streams=run_bfjs_trace,
     monte_carlo=monte_carlo_bfjs_workload,
-    reference_todo=bfjs._REFERENCE_TODO,
 ))
 register_policy(PolicySpec(
     name="bfjs-mr",
     run=run_bfjs_mr_workload,
     run_streams=run_bfjs_mr_trace,
     monte_carlo=monte_carlo_bfjs_mr_workload,
-    engines=bfjs_mr.ENGINES,
 ))
 register_policy(PolicySpec(
     name="vqs",
     run=run_vqs_workload,
     run_streams=run_vqs_trace,
     monte_carlo=monte_carlo_vqs_workload,
-    reference_todo=vqs._REFERENCE_TODO,
 ))
 register_policy(PolicySpec(
     name="vqs-bf",
     run=run_vqs_bf_workload,
     run_streams=run_vqs_bf_trace,
     monte_carlo=monte_carlo_vqs_bf_workload,
-    reference_todo=vqs._REFERENCE_TODO,
 ))
 
 

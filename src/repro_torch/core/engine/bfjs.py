@@ -1,8 +1,20 @@
 """BF-J/S cluster engines (paper Section IV), torch port of
 ``repro.core.engine.bfjs``.
 
-Two engines share one trajectory semantics:
+Three engines share one trajectory semantics:
 
+  * ``engine="reference"`` — the nested-loop oracle
+    (``_run_bfjs_reference_streams``), a transcription of the JAX
+    ``_run_bfjs_reference`` on the host: per slot, BF-S over the freed
+    servers in ascending order (each filled with its largest fitting queued
+    jobs), then BF-J over the slot's arrivals (each on its tightest
+    feasible server).  The JAX oracle draws in-loop from a threefry key,
+    and ``make_streams(key, ...)`` replays those draws in fixed lanes; the
+    port's oracle reads the same lanes of ``make_streams``-shaped streams
+    (the Poisson count, the ``A_max`` sizes, the ``L*K + A_max`` durations
+    and the fault plane), so on JAX streams it equals the JAX oracle.  Like
+    JAX, it is reachable from a seed (``run_bfjs``, ``monte_carlo_bfjs``),
+    not from explicit streams (``run_bfjs_trace`` refuses it);
   * ``engine="scan"`` — the branch-free slot engine: all randomness comes
     from pre-generated streams, and the per-slot BF-S/BF-J placement nest is
     one bounded work list of masked selects.  It runs batched over a leading
@@ -12,11 +24,10 @@ Two engines share one trajectory semantics:
   * ``engine="cuda"`` — the fused slot-step kernel in ``kernels/bfjs``: one
     thread block per ensemble member, the whole state in shared memory.
 
-Both reproduce the JAX package's ``run_bfjs_streams`` bit for bit on shared
-streams — queue length, departures and every counter — with occupancy equal
-to float32 rounding (it is summed in another order).  The JAX
-``"reference"`` engine draws its randomness in-loop from a threefry key and
-has no counterpart here yet.
+"scan" and "cuda" reproduce the JAX package's ``run_bfjs_streams`` bit for
+bit on shared streams — queue length, departures and every counter — with
+occupancy equal to float32 rounding (it is summed in another order), and
+equal "reference" whenever ``truncated == 0``.
 
 Fixed-capacity redesign (as in the JAX package): the queue is a
 ``Qcap``-slot buffer and arrivals that find it full are dropped AND COUNTED
@@ -29,7 +40,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from ...device import resolve_device
-from .ops import first_empty_positions, row_sum_lr
+from .ops import (best_fit_server, first_empty_positions,
+                  largest_fitting_job, row_sum_lr)
 from .streams import (INF_SLOT, PolicyResult, SchedStreams, make_streams,
                       resolve_work_steps)
 
@@ -40,12 +52,8 @@ BFJSResult = PolicyResult
 #: times, then it is counted ``lost``.
 DEFAULT_MAX_REQUEUE = 2
 
-ENGINES = ("scan", "cuda")
-
-_REFERENCE_TODO = (
-    "the bfjs \"reference\" engine draws its randomness in-loop from a "
-    "threefry key and is not ported yet (ROADMAP queue 1: BF-J/S reference "
-    "engine); use engine=\"scan\" or engine=\"cuda\"")
+#: The engines every policy runs.
+ENGINES = ("scan", "cuda", "reference")
 
 
 class BFJSState(NamedTuple):
@@ -115,6 +123,33 @@ def _preempt_grid(srv, dep, tries, queue, qtry, up_t, max_requeue):
     dep = torch.where(victim, INF_SLOT, dep)
     tries = torch.where(victim, 0, tries)
     return srv, dep, tries, queue, qtry, n_vict, n_req, n_vict - n_req
+
+
+def _member_by_member(oracle, streams: SchedStreams, **kw) -> PolicyResult:
+    """Run a host oracle over one cluster's streams, or over each member of
+    an ensemble in turn, stacking the results on the leading G axis."""
+    if streams.n.ndim == 1:
+        return oracle(streams, **kw)
+    members = [oracle(SchedStreams(*(None if x is None else x[g]
+                                     for x in streams)), **kw)
+               for g in range(streams.n.shape[0])]
+    return PolicyResult(*(None if xs[0] is None else torch.stack(xs)
+                          for xs in zip(*members)))
+
+
+def _oracle_result(dev, queue_len, occupancy, departed,
+                   *counters) -> PolicyResult:
+    """A host oracle's trajectories (numpy arrays or CPU tensors: queue
+    length, occupancy and cumulative departures) and its five counters
+    (dropped, truncated, preempted, requeued, lost) as a
+    :class:`PolicyResult` on ``dev``."""
+    def on_dev(x, dtype):
+        return torch.as_tensor(x).to(dtype).to(dev)
+    return PolicyResult(on_dev(queue_len, torch.int32),
+                        on_dev(occupancy, torch.float32),
+                        on_dev(departed, torch.int32),
+                        *(on_dev(c, torch.int32).reshape(())
+                          for c in counters))
 
 
 def _check_sequential_durs(streams: SchedStreams, L: int, K: int,
@@ -357,6 +392,118 @@ def _scan(streams: SchedStreams, L: int, K: int, Qcap: int, A_max: int,
     return res, state
 
 
+def _run_bfjs_reference_streams(streams: SchedStreams, L: int, K: int,
+                                Qcap: int, A_max: int,
+                                max_requeue: int = DEFAULT_MAX_REQUEUE
+                                ) -> PolicyResult:
+    """The nested-loop BF-J/S oracle over ``make_streams``-shaped streams.
+
+    A transcription of the JAX ``_run_bfjs_reference``, slot by slot on the
+    host over CPU tensors, one member after another for batched streams;
+    the result lands on the streams' device.  Each draw the JAX oracle
+    takes in-loop is read from the lane where ``make_streams`` puts it:
+    ``n[t]`` (the Poisson count, already clipped to ``A_max``), ``sizes[t,
+    :A_max]``, ``durs[t, dc]`` for the dc-th BF-S refill of the slot
+    (counted across servers, clamped to the last lane as JAX's gather
+    clamps), ``durs[t, L*K + a]`` for arrival a's BF-J placement, and the
+    fault plane ``up[t]``.  Residuals are ``1 - row_sum_lr(row)`` in
+    float32, the JAX oracle's left-to-right row sum, so every placement is
+    the JAX oracle's.  Occupancy is the row sums added in ascending row
+    order, as the scan engine and the kernel add them.  The oracle has no
+    work bound: ``truncated`` is always 0."""
+    _check_sequential_durs(streams, L, K, A_max)
+    return _member_by_member(_bfjs_reference_one, streams, L=L, K=K,
+                             Qcap=Qcap, A_max=A_max, max_requeue=max_requeue)
+
+
+def _bfjs_reference_one(streams: SchedStreams, L: int, K: int, Qcap: int,
+                        A_max: int, max_requeue: int) -> PolicyResult:
+    dev = streams.n.device
+    n, sizes, durs, up = (None if x is None else x.cpu() for x in streams)
+    T, D = durs.shape
+    faulted = up is not None
+    a_iota = torch.arange(A_max)
+    inf = float("inf")
+    st = _first(initial_state(1, L, K, Qcap, "cpu"))
+    srv, dep, queue, qtry, tries = st.srv, st.dep, st.queue, st.qtry, st.tries
+    up_last = st.up_last
+    dropped = preempted = requeued = lost = 0
+    qlen = torch.empty(T, dtype=torch.int32)
+    occ = torch.empty(T, dtype=torch.float32)
+    ndep = torch.empty(T, dtype=torch.int32)
+
+    def place_in_server(i, size, dslot, tries_of_job):
+        # first empty slot; slot 0 when the row is full (argmax of all-False)
+        slot = int(torch.argmax((srv[i] == 0.0).to(torch.int8)))
+        srv[i, slot] = size
+        dep[i, slot] = dslot
+        if faulted:
+            tries[i, slot] = tries_of_job
+
+    for t in range(T):
+        # 1. departures
+        leaving = dep == t
+        freed = leaving.any(1)
+        ndep[t] = int(leaving.sum())
+        srv = torch.where(leaving, 0.0, srv)
+        dep = torch.where(leaving, INF_SLOT, dep)
+
+        # 1b. capacity shocks: the scan engine's _preempt_grid rule
+        if faulted:
+            up_t = up[t]
+            tries = torch.where(leaving, 0, tries)
+            srv, dep, tries, queue, qtry, n_p, n_r, n_l = (
+                x[0] for x in _preempt_grid(srv[None], dep[None],
+                                            tries[None], queue[None],
+                                            qtry[None], up_t[None],
+                                            max_requeue))
+            preempted += int(n_p)
+            requeued += int(n_r)
+            lost += int(n_l)
+            freed = (freed | (up_t & ~up_last)) & up_t
+            up_last = up_t
+
+        # 2. arrivals -> the first empty queue slots
+        pos, landed = first_empty_positions(queue == 0.0, a_iota < n[t])
+        dropped += int(n[t]) - int(landed.sum())
+        queue[pos[landed]] = sizes[t][landed]
+        new_pos = torch.where(landed, pos, -1).tolist()
+
+        # 3. BF-S over freed servers: fill each with its largest fitting jobs
+        dc = 0
+        for i in torch.nonzero(freed).flatten().tolist():
+            while True:
+                j = int(largest_fitting_job(queue, 1.0 - row_sum_lr(srv[i])))
+                if j < 0:
+                    break
+                place_in_server(i, queue[j], t + durs[t, min(dc, D - 1)],
+                                qtry[j])
+                qtry[j] = 0
+                queue[j] = 0.0
+                dc += 1
+
+        # 4. BF-J over the new arrivals still in the queue
+        for a in range(A_max):
+            pos_a = new_pos[a]
+            size = queue[pos_a] if pos_a >= 0 else queue.new_zeros(())
+            resid = 1.0 - row_sum_lr(srv)
+            if faulted:
+                resid = torch.where(up_t, resid, -inf)
+            s_idx = int(best_fit_server(resid, torch.where(size > 0, size,
+                                                           inf)))
+            if size > 0 and s_idx >= 0:
+                place_in_server(s_idx, size, t + durs[t, L * K + a],
+                                qtry[pos_a])
+                qtry[pos_a] = 0
+                queue[pos_a] = 0.0
+
+        qlen[t] = int((queue > 0).sum())
+        occ[t] = row_sum_lr(row_sum_lr(srv))
+
+    return _oracle_result(dev, qlen, occ, torch.cumsum(ndep, 0), dropped, 0,
+                          preempted, requeued, lost)
+
+
 def ensemble_streams(seeds, lam: float, mu: float, sampler: Callable,
                       L: int, K: int, A_max: int, horizon: int, device,
                       num_resources: int = 1, fault_rate: float = 0.0,
@@ -397,15 +544,19 @@ def run_bfjs(seed: int, lam: float, mu: float, sampler: Callable,
 
     ``seed`` seeds the stream generator on ``device`` (default: the card);
     ``sampler(generator, n, device) -> (n,)`` float sizes in (0,1].
-    ``engine``: "scan" (branch-free, default) | "cuda" (fused kernel).
-    ``fault_rate > 0`` injects per-slot server capacity shocks."""
-    if engine == "reference":
-        raise NotImplementedError(_REFERENCE_TODO)
+    ``engine``: "scan" (branch-free, default) | "cuda" (fused kernel) |
+    "reference" (the nested-loop oracle on the host, reading the same
+    streams).  ``fault_rate > 0`` injects per-slot server capacity
+    shocks."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     streams = make_streams(gen, lam, mu, sampler, L=L, K=K, A_max=A_max,
                            horizon=horizon, device=device,
                            fault_rate=fault_rate, repair_rate=repair_rate)
+    if engine == "reference":
+        return _run_bfjs_reference_streams(streams, L=L, K=K, Qcap=Qcap,
+                                           A_max=A_max,
+                                           max_requeue=max_requeue)
     return run_bfjs_trace(streams, L=L, K=K, Qcap=Qcap, A_max=A_max,
                           engine=engine, work_steps=work_steps, window=window,
                           max_requeue=max_requeue, strict=strict)
@@ -427,10 +578,15 @@ def run_bfjs_trace(streams: SchedStreams, *, L: int, K: int, Qcap: int,
                    strict: bool = False) -> PolicyResult:
     """Run BF-J/S over explicit streams (one cluster, or an ensemble with a
     leading G axis) on the streams' device.  ``window`` is validated against
-    the horizon for ``engine="cuda"``."""
+    the horizon for ``engine="cuda"``.  As in the JAX package, the oracle
+    is not offered on explicit streams: it is defined by its draws, which
+    ``run_bfjs`` and ``monte_carlo_bfjs`` make from a seed."""
     _check_sequential_durs(streams, L, K, A_max)
     if engine == "reference":
-        raise NotImplementedError(_REFERENCE_TODO)
+        raise ValueError(
+            "bfjs has no stream-driven reference engine: its oracle draws "
+            "RNG in-loop from a key.  Use engine=\"scan\"/\"cuda\" on "
+            "streams, or run_bfjs(seed, ..., engine=\"reference\").")
     if engine == "cuda":
         if _cuda_ok(streams, L, K, Qcap, A_max, strict):
             from ...kernels.bfjs.ops import bfjs_simulate
@@ -460,14 +616,16 @@ def monte_carlo_bfjs(seeds, lam: float, mu: float, sampler: Callable,
 
     Every member's streams are generated on ``device`` (default: the card);
     "scan" runs them batched, "cuda" runs the fused kernel with one thread
-    block per member."""
-    if engine == "reference":
-        raise NotImplementedError(_REFERENCE_TODO)
+    block per member, "reference" runs the host oracle member by member."""
     device = resolve_device(device)
     streams = ensemble_streams(seeds, lam, mu, sampler, L=L, K=K,
                                 A_max=A_max, horizon=horizon, device=device,
                                 fault_rate=fault_rate,
                                 repair_rate=repair_rate)
+    if engine == "reference":
+        return _run_bfjs_reference_streams(streams, L=L, K=K, Qcap=Qcap,
+                                           A_max=A_max,
+                                           max_requeue=max_requeue)
     return run_bfjs_trace(streams, L=L, K=K, Qcap=Qcap, A_max=A_max,
                           engine=engine, work_steps=work_steps, window=window,
                           max_requeue=max_requeue, strict=strict)

@@ -43,15 +43,15 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ..multi_resource import MRJob, MultiResourceBFJS, grid_demands
 from ..quantize import RES
-from .bfjs import DEFAULT_MAX_REQUEUE, _batched, _first, ensemble_streams
+from .bfjs import (DEFAULT_MAX_REQUEUE, ENGINES, _batched, _first,
+                   _member_by_member, _oracle_result, ensemble_streams)
 from .ops import alignment_score_pair, first_empty_positions, to_grid_t
 from .streams import (INF_SLOT, PolicyResult, SchedStreams,
                       resolve_work_steps)
 
 INT32_MAX = 2 ** 31 - 1
-
-ENGINES = ("scan", "cuda", "reference")
 
 
 class BFJSMRState(NamedTuple):
@@ -404,33 +404,31 @@ def _run_bfjs_mr_reference(streams: SchedStreams, *, L: int,
 
     Host-side numpy, slot by slot, one member after another for batched
     streams; the result lands on the streams' device.  Demands are the
-    engines' grid quantization (``max(rint(s * RES), 1)``) replayed as the
-    exact dyadics ``g / RES``, and the capacity is quantized to the grid
-    too, so every feasibility comparison is exact and agrees with the
-    integer engines.  With a fault plane the oracle is stepped with
-    ``down = ~up[t]`` and the counters come from its fault accounting (lost
-    jobs never depart, so cumulative departures subtract them).  The oracle
-    has no fixed-size buffers: ``dropped`` and ``truncated`` are always 0.
+    engines' grid quantization replayed as the exact dyadics ``g / RES``
+    (``multi_resource.grid_demands``, shared with ``simulate_mr_trace``),
+    and the capacity is quantized to the grid too, so every feasibility
+    comparison is exact and agrees with the integer engines.  With a fault
+    plane the oracle is stepped with ``down = ~up[t]`` and the counters
+    come from its fault accounting (lost jobs never depart, so cumulative
+    departures subtract them).  The oracle has no fixed-size buffers:
+    ``dropped`` and ``truncated`` are always 0.
     """
-    from ..multi_resource import MRJob, MultiResourceBFJS
+    return _member_by_member(_bfjs_mr_reference_one, _lift_sizes(streams),
+                             L=L, capacity=capacity,
+                             max_requeue=max_requeue)
 
-    streams = _lift_sizes(streams)
-    if streams.n.ndim == 2:
-        members = [_run_bfjs_mr_reference(
-            SchedStreams(*(None if x is None else x[g] for x in streams)),
-            L=L, capacity=capacity, max_requeue=max_requeue)
-            for g in range(streams.n.shape[0])]
-        return PolicyResult(*(None if xs[0] is None else torch.stack(xs)
-                              for xs in zip(*members)))
+
+def _bfjs_mr_reference_one(streams: SchedStreams, L: int, capacity,
+                           max_requeue: int) -> PolicyResult:
     dev = streams.n.device
     n = streams.n.cpu().numpy()
-    sizes = streams.sizes.cpu().numpy().astype(np.float64)
+    sizes = streams.sizes.cpu().numpy()
     durs = streams.durs.cpu().numpy()
     up = None if streams.up is None else streams.up.cpu().numpy()
     T, A_max, R = sizes.shape
     capacity = _norm_capacity(capacity, R)
     cap_dyadic = tuple(round(c * RES) / RES for c in capacity)
-    dem = np.maximum(np.rint(sizes * RES), 1.0) / RES
+    dem = grid_demands(sizes)
     dur_off = durs.shape[-1] - A_max
 
     policy = MultiResourceBFJS(L, R, capacity=cap_dyadic)
@@ -451,14 +449,8 @@ def _run_bfjs_mr_reference(streams: SchedStreams, *, L: int,
         in_service = sum(len(s) for s in policy.jobs)
         dep_cum[t] = jid - in_service - q - policy.lost
 
-    def i32(v):
-        return torch.tensor(v, dtype=torch.int32, device=dev)
-
-    return PolicyResult(
-        torch.from_numpy(qlen).to(dev),
-        torch.from_numpy(occ.astype(np.float32)).to(dev),
-        torch.from_numpy(dep_cum).to(dev), i32(0), i32(0),
-        i32(policy.preempted), i32(policy.requeued), i32(policy.lost))
+    return _oracle_result(dev, qlen, occ, dep_cum, 0, 0, policy.preempted,
+                          policy.requeued, policy.lost)
 
 
 def _cuda_ok(streams: SchedStreams, L: int, K: int, Qcap: int, A_max: int,

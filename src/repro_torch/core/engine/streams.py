@@ -183,9 +183,10 @@ def streams_from_trace(trace_or_slots, sizes=None, durations=None, *,
     """Build ``SchedStreams`` that replay a workload trace exactly.
 
     Takes the raw arrays ``(arrival_slots, sizes, durations)`` — ``sizes``
-    ``(N,)`` for scalar jobs or ``(N, R)`` for demand vectors — or any
-    object with ``arrival_slots`` and ``durations`` attributes plus either
-    ``sizes`` or ``cpu`` and ``mem``.  A two-resource trace is collapsed to
+    ``(N,)`` for scalar jobs or ``(N, R)`` for demand vectors — or a
+    ``core.trace.Trace`` (any object with ``arrival_slots`` and
+    ``durations`` attributes plus either ``sizes`` or ``cpu`` and
+    ``mem``).  A two-resource trace is collapsed to
     ``max(cpu, mem)`` as the paper does, or kept as ``(T, A_max, 2)`` (cpu,
     mem) demand vectors with ``collapse=False`` (the ``policy="bfjs-mr"``
     path).  As the JAX ``streams_from_trace``: jobs are stably sorted by

@@ -1,8 +1,14 @@
 """VQS cluster engines (paper Section V, Theorem 3: >= 2/3 rho*), torch
 port of ``repro.core.engine.vqs``.
 
-Two engines share one trajectory semantics:
+Three engines share one trajectory semantics:
 
+  * ``engine="reference"`` — the nested-loop oracle
+    (``_run_vqs_reference_streams``), a transcription of the JAX
+    ``_run_vqs_reference_streams`` on the host: the sorted visit over
+    servers, configuration renewal at server-empty epochs, the single-job
+    VQ_1 step, head-of-VQ packing and the ``(L, 2J)`` subscription sets.
+    On trace streams it reproduces ``simulate_trace(VQS(J), ...)``;
   * ``engine="scan"`` — the branch-free slot engine: per slot, a bounded
     work list of masked-select steps.  Each step (a) advances past EVERY
     pending visited server that cannot place (their renewals collapse to
@@ -18,9 +24,9 @@ Two engines share one trajectory semantics:
     thread block per ensemble member.
 
 All capacity arithmetic is exact integer math on the ``quantize.RES``
-grid, so both equal the JAX ``run_vqs_streams`` on every field of shared
-streams, occupancy included.  The JAX ``"reference"`` oracle has no
-counterpart here yet.
+grid, so every engine equals its JAX counterpart on every field of shared
+streams, occupancy included, and "scan" and "cuda" equal "reference"
+whenever ``truncated == 0``.
 
 Fixed-shape deviations (counted, never silent):
 
@@ -31,30 +37,25 @@ Fixed-shape deviations (counted, never silent):
     (choose ``K >= 2**J`` to make this impossible);
   * a slot that needs more than ``work_steps`` placing servers is finished
     lazily (remaining placements postponed to later wake-ups) and counted
-    in ``truncated``.
+    in ``truncated`` (the scan and cuda engines).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ...device import resolve_device
 from ..quantize import RES, TWO_THIRDS
-from .bfjs import DEFAULT_MAX_REQUEUE, _batched, _first, ensemble_streams
+from .bfjs import (DEFAULT_MAX_REQUEUE, ENGINES, _batched, _first,
+                   _member_by_member, _oracle_result, ensemble_streams)
 from .ops import k_red_t, max_weight_config, to_grid_t, vq_type_of_grid
 from .streams import (INF_SLOT, PolicyResult, SchedStreams, make_streams,
                       resolve_work_steps)
 
 CAP = RES             # unit server capacity on the grid
 RESERVE = TWO_THIRDS  # (2*CAP + 1) // 3, the paper's VQ_1 reservation
-
-ENGINES = ("scan", "cuda")
-
-_REFERENCE_TODO = (
-    "the VQS and VQS-BF \"reference\" engines (nested-loop oracles over "
-    "streams) are not ported yet (ROADMAP queue 1 item 4a); use "
-    "engine=\"scan\" or engine=\"cuda\"")
 
 
 class VQSState(NamedTuple):
@@ -218,6 +219,150 @@ def initial_state(G: int, J: int, L: int, K: int, Qcap: int,
         truncated=z, ring_try=full((nvq, Qcap), 0), srv_try=full((L, K), 0),
         preempted=z, requeued=z, lost=z,
         up_last=full((L,), True, torch.bool))
+
+
+def _run_vqs_reference_streams(streams: SchedStreams, J: int, L: int,
+                               K: int, Qcap: int, A_max: int,
+                               max_requeue: int = DEFAULT_MAX_REQUEUE
+                               ) -> PolicyResult:
+    """Nested-loop VQS oracle over pre-generated streams.
+
+    A control-flow transcription of the JAX ``_run_vqs_reference_streams``
+    (itself one of ``core/vqs.py`` + ``core/simulator.py``), slot by slot on
+    the host, one member after another for batched streams; the result
+    lands on the streams' device.  The slot's departures, the
+    ``_preempt_rings`` eviction of a fault plane and the ``_push_arrivals``
+    classification are the scan engine's own batched functions on CPU
+    tensors; the serve pass visits the visit set in ascending server order
+    over numpy views of the same planes: renewal from ``_mw_config`` when
+    the server emptied or has no configuration, one VQ_1 job into the 2/3
+    reservation, then head-of-VQ_{j*} packing while the head fits, with the
+    subscriptions of what was missing.  A placement onto a full server is
+    counted in ``truncated`` (its job is consumed, as in JAX)."""
+    return _member_by_member(_vqs_reference_one, streams, J=J, L=L, K=K,
+                             Qcap=Qcap, A_max=A_max, max_requeue=max_requeue)
+
+
+def _vqs_reference_one(streams: SchedStreams, J: int, L: int, K: int,
+                       Qcap: int, A_max: int,
+                       max_requeue: int) -> PolicyResult:
+    dev = streams.n.device
+    n, sizes, durs, up = (None if x is None else x.cpu()[None]
+                          for x in streams)
+    T = n.shape[1]
+    faulted = up is not None
+    confs = k_red_t(J)
+    (srv, dep, vqof, ring_eff, ring_dur, head, qcnt, cfg_k1, cfg_js, has_cfg,
+     in_empty, want, _, dropped, _, ring_try, srv_try, preempted, requeued,
+     lost, up_last) = initial_state(1, J, L, K, Qcap, "cpu")
+    trunc = 0
+    qlen = np.empty(T, dtype=np.int32)
+    occ = np.empty(T, dtype=np.float32)
+    ndep = np.empty(T, dtype=np.int32)
+
+    for t in range(T):
+        t_g = torch.full((1,), t, dtype=torch.int32)
+        # 1. departures
+        leaving = dep == t
+        freed = leaving.any(-1)
+        ndep[t] = int(leaving.sum())
+        srv = torch.where(leaving, 0, srv)
+        vqof = torch.where(leaving, -1, vqof)
+        dep = torch.where(leaving, INF_SLOT, dep)
+
+        # 1b. capacity shocks: evict down servers into the VQ tails,
+        # recoveries count as freed, down servers leave the visit set.
+        re_arrived = None
+        if faulted:
+            up_t = up[:, t]
+            srv_try = torch.where(leaving, 0, srv_try)
+            (srv, dep, vqof, ring_eff, ring_dur, ring_try, head, qcnt,
+             srv_try, n_p, n_r, n_l, re_arrived) = _preempt_rings(
+                srv, dep, vqof, ring_eff, ring_dur, ring_try, head, qcnt,
+                srv_try, up_t, t_g, max_requeue, J=J, Qcap=Qcap)
+            preempted = preempted + n_p
+            requeued = requeued + n_r
+            lost = lost + n_l
+            freed = (freed | (up_t & ~up_last)) & up_t
+            up_last = up_t
+        empty_now = ((srv > 0).sum(-1) == 0)[0].numpy()
+
+        # 2. arrivals
+        (ring_eff, ring_dur, head, qcnt, dropped, arrived,
+         rt) = _push_arrivals(ring_eff, ring_dur, head, qcnt, dropped,
+                              n[:, t], sizes[:, t], durs[:, t], J=J,
+                              Qcap=Qcap, A_max=A_max,
+                              ring_try=ring_try if faulted else None)
+        if faulted:
+            ring_try = rt
+            arrived = arrived | re_arrived
+
+        # 3. visit set (freed + woken subscribers + empty-with-work)
+        woken = (want & arrived[:, None, :]).any(-1)
+        want = want & ~arrived[:, None, :]
+        visit = freed | woken | (in_empty & (qcnt.sum(-1) > 0)[:, None])
+        if faulted:
+            visit = visit & up_t
+
+        # 4. serve the visited servers in ascending order, on numpy views
+        # of the planes (writes land in the tensors)
+        S, Dp, V, H, Q, CK, CJ, HC, IE, W, ST = (
+            x[0].numpy() for x in (srv, dep, vqof, head, qcnt, cfg_k1,
+                                   cfg_js, has_cfg, in_empty, want,
+                                   srv_try))
+        RE, RD, RT = ring_eff[0].numpy(), ring_dur[0].numpy(), \
+            ring_try[0].numpy()
+
+        def place_one(i, j):
+            nonlocal trunc
+            pos = H[j] % Qcap
+            H[j] += 1
+            Q[j] -= 1
+            free = np.flatnonzero(S[i] == 0)
+            if free.size:
+                k = free[0]
+                S[i, k] = RE[j, pos]
+                Dp[i, k] = t + RD[j, pos]
+                V[i, k] = j
+                if faulted:  # the retry count rides with the job
+                    ST[i, k] = RT[j, pos]
+            else:
+                trunc += 1
+            IE[i] = False
+
+        for i in np.flatnonzero(visit[0].numpy()):
+            if empty_now[i] or not HC[i]:
+                k1, js = (int(x) for x in _mw_config(confs, qcnt, J))
+                CK[i], CJ[i] = k1, js
+            k1, js = bool(CK[i]), int(CJ[i])
+            HC[i] = True
+            IE[i] |= empty_now[i]
+
+            # (i) one VQ_1 job into the 2/3 reservation when missing
+            has_vq1 = ((V[i] == 1) & (S[i] > 0)).any()
+            if k1 and not has_vq1:
+                if Q[1] == 0:
+                    W[i, 1] = True
+                elif RE[1, H[1] % Qcap] <= CAP - S[i].sum():
+                    place_one(i, 1)
+
+            # (ii) head-of-VQ_{j*} packing into the unreserved capacity
+            if js >= 0:
+                other_cap = CAP - RESERVE if k1 else CAP
+                while Q[js] > 0:
+                    vq1_occ = (S[i] * (V[i] == 1)).sum()
+                    if S[i].sum() - vq1_occ + RE[js, H[js] % Qcap] \
+                            > other_cap:
+                        break
+                    place_one(i, js)
+                if Q[js] == 0:
+                    W[i, js] = True
+
+        qlen[t] = Q.sum()
+        occ[t] = np.float32(S.sum()) / RES
+
+    return _oracle_result(dev, qlen, occ, np.cumsum(ndep), dropped, trunc,
+                          preempted, requeued, lost)
 
 
 def run_vqs_streams(streams: SchedStreams, J: int, L: int, K: int,
@@ -478,7 +623,9 @@ def run_vqs_trace(streams: SchedStreams, *, J: int, L: int, K: int,
     an ensemble with a leading G axis) on the streams' device.  ``window``
     is validated against the horizon for ``engine="cuda"``."""
     if engine == "reference":
-        raise NotImplementedError(_REFERENCE_TODO)
+        return _run_vqs_reference_streams(streams, J=J, L=L, K=K,
+                                          Qcap=Qcap, A_max=A_max,
+                                          max_requeue=max_requeue)
     if engine == "cuda":
         if _cuda_ok(streams, J, L, K, Qcap, A_max, strict):
             from ...kernels.vqs.ops import vqs_simulate
@@ -512,8 +659,6 @@ def run_vqs(seed: int, lam: float, mu: float, sampler: Callable,
     injects per-slot server capacity shocks: down servers evict their jobs
     into the tails of their virtual queues (up to ``max_requeue`` retries
     each, ``lost`` past that)."""
-    if engine == "reference":
-        raise NotImplementedError(_REFERENCE_TODO)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     streams = make_streams(gen, lam, mu, sampler, L=L, K=K, A_max=A_max,
@@ -534,9 +679,8 @@ def monte_carlo_vqs(seeds, lam: float, mu: float, sampler: Callable,
                     max_requeue: int = DEFAULT_MAX_REQUEUE,
                     strict: bool = False, device=None) -> PolicyResult:
     """One simulated cluster per integer seed, batched on a leading G axis
-    ("cuda": one thread block per member)."""
-    if engine == "reference":
-        raise NotImplementedError(_REFERENCE_TODO)
+    ("cuda": one thread block per member; "reference": the host oracle
+    member by member)."""
     device = resolve_device(device)
     streams = ensemble_streams(seeds, lam, mu, sampler, L=L, K=K,
                                A_max=A_max, horizon=horizon, device=device,

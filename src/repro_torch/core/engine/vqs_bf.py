@@ -22,27 +22,33 @@ plane, so "pop the largest job <= cap" is a masked lexicographic reduction
 — maximum effective size, then lowest VQ index, then smallest sequence
 stamp (FIFO among equals).
 
-Engines: ``engine="scan"`` (the branch-free bounded work list, batched over
-a leading ensemble axis G; each step advances past every pending visited
+Engines: ``engine="reference"`` (the nested-loop oracle
+``_run_vqs_bf_reference_streams``, a transcription of the JAX oracle on the
+host; on trace streams it reproduces ``simulate_trace(VQSBF(J), ...)``),
+``engine="scan"`` (the branch-free bounded work list, batched over a
+leading ensemble axis G; each step advances past every pending visited
 server that cannot place and serves the first one that can with ONE
 pop-and-place) and ``engine="cuda"`` (the fused kernel in
-``kernels/vqs_bf``).  Both equal the JAX ``run_vqs_bf_streams`` on every
-field of shared streams.  Ring overflow is counted in ``dropped``,
-per-server K-slot overflow and lazily-finished slots in ``truncated``.
+``kernels/vqs_bf``).  Each equals its JAX counterpart on every field of
+shared streams, and "scan" and "cuda" equal "reference" whenever
+``truncated == 0``.  Ring overflow is counted in ``dropped``, per-server
+K-slot overflow and lazily-finished slots in ``truncated``.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from ...device import resolve_device
 from ..quantize import RES
-from .bfjs import DEFAULT_MAX_REQUEUE, _batched, _first, ensemble_streams
+from .bfjs import (DEFAULT_MAX_REQUEUE, ENGINES, _batched, _first,
+                   _member_by_member, _oracle_result, ensemble_streams)
 from .ops import k_red_t, max_weight_config, to_grid_t, vq_type_of_grid
 from .streams import (INF_SLOT, PolicyResult, SchedStreams, make_streams,
                       resolve_work_steps)
-from .vqs import ENGINES, _REFERENCE_TODO, _scatter_rows
+from .vqs import _scatter_rows
 
 CAP = RES
 _INF32 = 2 ** 31 - 1
@@ -297,6 +303,165 @@ def initial_state(G: int, J: int, L: int, K: int, Qcap: int,
         up_last=full((L,), True, torch.bool))
 
 
+def _run_vqs_bf_reference_streams(streams: SchedStreams, J: int, L: int,
+                                  K: int, Qcap: int, A_max: int,
+                                  max_requeue: int = DEFAULT_MAX_REQUEUE
+                                  ) -> PolicyResult:
+    """Nested-loop VQS-BF oracle over pre-generated streams.
+
+    A control-flow transcription of the JAX
+    ``_run_vqs_bf_reference_streams`` (itself one of ``core/vqs_bf.py`` +
+    ``core/simulator.py``), slot by slot on the host, one member after
+    another for batched streams; the result lands on the streams' device.
+    The departures, the ``_preempt_rings_bf`` eviction, the
+    ``_push_arrivals_bf`` bucketing, every ``_pop_largest`` and the closing
+    ``_arrival_bf_pass`` are the scan engine's own batched functions on CPU
+    tensors; the serve pass visits the visit set in ascending server order
+    over numpy views of the same planes: renewal from ``_mw_config_bf``,
+    (i) the largest fitting VQ_1 job, (ii) largest-fit-first from VQ_{j*}
+    up to k_{j*} resident jobs, (iii) the BF-S sweep over every VQ.  A
+    placement onto a full server is counted in ``truncated`` (its job is
+    consumed, as in JAX)."""
+    return _member_by_member(_vqs_bf_reference_one, streams, J=J, L=L, K=K,
+                             Qcap=Qcap, A_max=A_max, max_requeue=max_requeue)
+
+
+def _vqs_bf_reference_one(streams: SchedStreams, J: int, L: int, K: int,
+                          Qcap: int, A_max: int,
+                          max_requeue: int) -> PolicyResult:
+    dev = streams.n.device
+    n, sizes, durs, up = (None if x is None else x.cpu()[None]
+                          for x in streams)
+    T = n.shape[1]
+    nvq = 2 * J
+    faulted = up is not None
+    confs = k_red_t(J)
+    j_iota = torch.arange(nvq)
+    (srv, dep, vqof, ring_eff, ring_dur, ring_seq, qcnt, seq_ctr, cfg_k1,
+     cfg_js, cfg_ks, has_cfg, in_empty, want, _, dropped, trunc, ring_try,
+     srv_try, preempted, requeued, lost, up_last) = initial_state(
+        1, J, L, K, Qcap, "cpu")
+    up_t = None
+    qlen = np.empty(T, dtype=np.int32)
+    occ = np.empty(T, dtype=np.float32)
+    ndep = np.empty(T, dtype=np.int32)
+
+    for t in range(T):
+        t_g = torch.full((1,), t, dtype=torch.int32)
+        # 1. departures
+        leaving = dep == t
+        freed = leaving.any(-1)
+        ndep[t] = int(leaving.sum())
+        srv = torch.where(leaving, 0, srv)
+        vqof = torch.where(leaving, -1, vqof)
+        dep = torch.where(leaving, INF_SLOT, dep)
+
+        # 1b. capacity shocks (the scan engine's _preempt_rings_bf rule)
+        re_arrived = None
+        if faulted:
+            up_t = up[:, t]
+            srv_try = torch.where(leaving, 0, srv_try)
+            (srv, dep, vqof, ring_eff, ring_dur, ring_seq, ring_try, qcnt,
+             seq_ctr, srv_try, n_p, n_r, n_l, re_arrived) = _preempt_rings_bf(
+                srv, dep, vqof, ring_eff, ring_dur, ring_seq, ring_try, qcnt,
+                seq_ctr, srv_try, up_t, t_g, max_requeue, J=J, Qcap=Qcap)
+            preempted = preempted + n_p
+            requeued = requeued + n_r
+            lost = lost + n_l
+            freed = (freed | (up_t & ~up_last)) & up_t
+            up_last = up_t
+        empty_now = ((srv > 0).sum(-1) == 0)[0].numpy()
+
+        # 2. arrivals
+        (ring_eff, ring_dur, ring_seq, qcnt, dropped, seq_ctr, arrived, rt,
+         lanes) = _push_arrivals_bf(
+            ring_eff, ring_dur, ring_seq, qcnt, dropped, seq_ctr, n[:, t],
+            sizes[:, t], durs[:, t], J=J, Qcap=Qcap, A_max=A_max,
+            ring_try=ring_try if faulted else None)
+        if faulted:
+            ring_try = rt
+            arrived = arrived | re_arrived
+
+        # 3. visit set
+        woken = (want & arrived[:, None, :]).any(-1)
+        want = want & ~arrived[:, None, :]
+        visit = freed | woken | (in_empty & (qcnt.sum(-1) > 0)[:, None])
+        if faulted:
+            visit = visit & up_t
+
+        # 4. serve the visited servers in ascending order, on numpy views
+        # of the planes (writes land in the tensors)
+        S, Dp, V, RE, Q, CK, CJ, CS, HC, IE, W, ST = (
+            x[0].numpy() for x in (srv, dep, vqof, ring_eff, qcnt, cfg_k1,
+                                   cfg_js, cfg_ks, has_cfg, in_empty, want,
+                                   srv_try))
+        RD, RT = ring_dur[0].numpy(), ring_try[0].numpy()
+        n_trunc = 0
+
+        def place_from(i, rows_ok):
+            nonlocal n_trunc
+            cap = torch.full((1,), CAP - int(S[i].sum()), dtype=torch.int32)
+            _, pvq, ppos = (int(x) for x in _pop_largest(
+                ring_eff, ring_seq, rows_ok[None], cap))
+            free = np.flatnonzero(S[i] == 0)
+            if free.size:
+                k = free[0]
+                S[i, k] = RE[pvq, ppos]
+                Dp[i, k] = t + RD[pvq, ppos]
+                V[i, k] = pvq
+                if faulted:  # the retry count rides with the job
+                    ST[i, k] = RT[pvq, ppos]
+            else:
+                n_trunc += 1
+            RE[pvq, ppos] = 0
+            Q[pvq] -= 1
+            IE[i] = False
+
+        def fits(i, rows):
+            ring = RE[rows]
+            return bool(((ring > 0) & (ring <= CAP - S[i].sum())).any())
+
+        for i in np.flatnonzero(visit[0].numpy()):
+            if empty_now[i] or not HC[i]:
+                CK[i], CJ[i], CS[i] = (int(x) for x in _mw_config_bf(
+                    confs, qcnt, J))
+            k1, js, ks = bool(CK[i]), int(CJ[i]), int(CS[i])
+            HC[i] = True
+            IE[i] |= empty_now[i]
+
+            # (i) one largest fitting VQ_1 job, exact reservation
+            if k1 and not ((V[i] == 1) & (S[i] > 0)).any():
+                if Q[1] == 0:
+                    W[i, 1] = True
+                if fits(i, 1):
+                    place_from(i, j_iota == 1)
+
+            # (ii) largest-fit-first from VQ_{j*}, capped at k_{j*}
+            if js >= 0:
+                while ((V[i] == js) & (S[i] > 0)).sum() < ks \
+                        and fits(i, js):
+                    place_from(i, j_iota == js)
+                if ((V[i] == js) & (S[i] > 0)).sum() < ks and Q[js] == 0:
+                    W[i, js] = True
+
+            # (iii) BF-S sweep over all VQs
+            while fits(i, slice(None)):
+                place_from(i, j_iota >= 0)
+
+        # 5. arrival-side BF-J pass over jobs still queued
+        (srv, dep, vqof, ring_eff, qcnt, in_empty, srv_try,
+         trunc) = _arrival_bf_pass(
+            srv, dep, vqof, ring_eff, ring_seq, qcnt, in_empty, srv_try,
+            trunc + n_trunc, t_g, lanes, up_t, L=L, K=K, A_max=A_max,
+            faulted=faulted)
+
+        qlen[t] = int(qcnt.sum())
+        occ[t] = np.float32(int(srv.sum())) / RES
+
+    return _oracle_result(dev, qlen, occ, np.cumsum(ndep), dropped, trunc,
+                          preempted, requeued, lost)
+
+
 def run_vqs_bf_streams(streams: SchedStreams, J: int, L: int, K: int,
                        Qcap: int, A_max: int, work_steps: int | None = None,
                        max_requeue: int = DEFAULT_MAX_REQUEUE,
@@ -526,7 +691,9 @@ def run_vqs_bf_trace(streams: SchedStreams, *, J: int, L: int, K: int,
     cluster, or an ensemble with a leading G axis) on the streams'
     device."""
     if engine == "reference":
-        raise NotImplementedError(_REFERENCE_TODO)
+        return _run_vqs_bf_reference_streams(streams, J=J, L=L, K=K,
+                                             Qcap=Qcap, A_max=A_max,
+                                             max_requeue=max_requeue)
     if engine == "cuda":
         if _cuda_ok(streams, J, L, K, Qcap, A_max, strict):
             from ...kernels.vqs_bf.ops import vqs_bf_simulate
@@ -554,8 +721,6 @@ def run_vqs_bf(seed: int, lam: float, mu: float, sampler: Callable,
     """Simulate VQS-BF on L unit-capacity servers for ``horizon`` slots.
     The streams (and any fault plane) are those a VQS run on the same seed
     draws, so the two policies compare on the same jobs."""
-    if engine == "reference":
-        raise NotImplementedError(_REFERENCE_TODO)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     streams = make_streams(gen, lam, mu, sampler, L=L, K=K, A_max=A_max,
@@ -576,9 +741,8 @@ def monte_carlo_vqs_bf(seeds, lam: float, mu: float, sampler: Callable,
                        max_requeue: int = DEFAULT_MAX_REQUEUE,
                        strict: bool = False, device=None) -> PolicyResult:
     """One simulated cluster per integer seed, batched on a leading G axis
-    ("cuda": one thread block per member)."""
-    if engine == "reference":
-        raise NotImplementedError(_REFERENCE_TODO)
+    ("cuda": one thread block per member; "reference": the host oracle
+    member by member)."""
     device = resolve_device(device)
     streams = ensemble_streams(seeds, lam, mu, sampler, L=L, K=K,
                                A_max=A_max, horizon=horizon, device=device,

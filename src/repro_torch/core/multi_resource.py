@@ -1,6 +1,7 @@
-"""Multi-resource Best-Fit (paper Section VIII): the event-driven oracle
-(numpy copy of ``repro.core.multi_resource``: ``alignment_scores``,
-``MRJob`` and ``MultiResourceBFJS``).
+"""Multi-resource Best-Fit (paper Section VIII): the event-driven oracle,
+a numpy copy of ``repro.core.multi_resource`` (``alignment_scores``,
+``MRJob``, ``MRResult``, ``MultiResourceBFJS``, ``simulate_mr``,
+``simulate_mr_trace`` and the ``CollapsedMaxBFJS`` baseline).
 
 The paper's preprocessing collapses (cpu, mem) to max(cpu, mem); Section
 VIII suggests instead a Best-Fit score that is the inner product of the
@@ -19,9 +20,11 @@ oracle and the integer engines agree on every tie-break.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
+
+from .quantize import RES, to_grid
 
 
 def alignment_scores(avail: np.ndarray, demand: np.ndarray) -> np.ndarray:
@@ -49,6 +52,28 @@ class MRJob:
     tries: int = 0            # completed requeue attempts (fault preemption)
     dep_time: int = -1        # scheduled departure slot while in service
     seq: int = -1             # queue-ordering id; refreshed on each requeue
+
+
+@dataclass
+class MRResult:
+    queue_lens: np.ndarray
+    arrived: int
+    departed: int
+    mean_queue: float
+    mean_queue_tail: float
+    final_queue: int
+    utilization: np.ndarray    # per-resource mean occupancy fraction
+    extras: dict = field(default_factory=dict)
+
+
+def grid_demands(demands) -> np.ndarray:
+    """Demands quantized to the ``quantize.RES`` grid and replayed as the
+    exact dyadics ``g / RES`` (float64), so every occupancy the oracle adds
+    and compares is exact.  The one quantization of the trace bridge
+    (``simulate_mr_trace``) and the streams oracle
+    (``core.engine.bfjs_mr._run_bfjs_mr_reference``); it equals the
+    integer engines' in-loop ``max(rint(s * RES), 1)``."""
+    return to_grid(demands).astype(np.float64) / RES
 
 
 class MultiResourceBFJS:
@@ -189,3 +214,118 @@ class MultiResourceBFJS:
 
     def queue_len(self) -> int:
         return len(self.queue)
+
+
+def simulate_mr(policy: MultiResourceBFJS, lam: float,
+                demand_sampler, mean_service: float, horizon: int,
+                seed: int = 0, record_every: int = 10) -> MRResult:
+    """demand_sampler(rng, n) -> (n, R) demands in (0,1]^R."""
+    rng = np.random.Generator(np.random.Philox(seed))
+    jid = 0
+    arrived = 0
+    qsum = qsum_tail = 0.0
+    tail = horizon // 2
+    occ_sum = np.zeros(policy.R)
+    records = []
+    for t in range(horizon):
+        n = int(rng.poisson(lam))
+        jobs = []
+        if n:
+            demands = demand_sampler(rng, n)
+            durs = rng.geometric(1.0 / mean_service, size=n)
+            for i in range(n):
+                jobs.append(MRJob(jid, np.asarray(demands[i]), t,
+                                  int(durs[i])))
+                jid += 1
+            arrived += n
+        policy.step(t, jobs)
+        q = policy.queue_len()
+        qsum += q
+        if t >= tail:
+            qsum_tail += q
+        occ_sum += policy.occupied.mean(axis=0)
+        if t % record_every == 0:
+            records.append(q)
+    in_service = sum(len(s) for s in policy.jobs)
+    return MRResult(
+        queue_lens=np.asarray(records),
+        arrived=arrived,
+        departed=arrived - in_service - policy.queue_len(),
+        mean_queue=qsum / horizon,
+        mean_queue_tail=qsum_tail / max(horizon - tail, 1),
+        final_queue=policy.queue_len(),
+        utilization=occ_sum / horizon,
+    )
+
+
+def simulate_mr_trace(policy: MultiResourceBFJS, arrival_slots, demands,
+                      durations, horizon: int | None = None,
+                      record_every: int = 1) -> MRResult:
+    """Replay a trace of (R,)-vector demands through the event-driven
+    oracle — the parity bridge for the ``policy="bfjs-mr"`` engines.
+
+    Mirrors ``simulator.simulate_trace`` preprocessing: stable sort by
+    arrival slot, demands quantized with :func:`grid_demands`, durations
+    clamped to >= 1.  Records the queue length every ``record_every``
+    slots and the per-resource occupancy plane every slot
+    (``extras["occupancy"]``, shape (T, R), in servers) plus cumulative
+    departures (``extras["departed_cum"]``).
+    """
+    arrival_slots = np.asarray(arrival_slots)
+    order = np.argsort(arrival_slots, kind="stable")
+    arrival_slots = arrival_slots[order].astype(np.int64)
+    demands = np.asarray(demands)[order]
+    if demands.ndim != 2 or demands.shape[1] != policy.R:
+        raise ValueError(
+            f"demands must be (N, R={policy.R}), got {demands.shape}")
+    dem_g = grid_demands(demands)
+    durations = np.maximum(np.asarray(durations)[order].astype(np.int64), 1)
+    n_jobs = len(arrival_slots)
+    if horizon is None:
+        horizon = int(arrival_slots[-1]) + 1
+
+    records: list[int] = []
+    occ_plane = np.zeros((horizon, policy.R))
+    dep_cum = np.zeros(horizon, dtype=np.int64)
+    qsum = qsum_tail = 0.0
+    tail = horizon // 2
+    ptr = 0
+    for t in range(horizon):
+        jobs = []
+        while ptr < n_jobs and arrival_slots[ptr] <= t:
+            jobs.append(MRJob(ptr, dem_g[ptr], t, int(durations[ptr])))
+            ptr += 1
+        policy.step(t, jobs)
+        q = policy.queue_len()
+        qsum += q
+        if t >= tail:
+            qsum_tail += q
+        in_service = sum(len(s) for s in policy.jobs)
+        dep_cum[t] = ptr - in_service - q
+        occ_plane[t] = policy.occupied.sum(axis=0)
+        if t % record_every == 0:
+            records.append(q)
+
+    return MRResult(
+        queue_lens=np.asarray(records),
+        arrived=ptr,
+        departed=int(dep_cum[-1]) if horizon else 0,
+        mean_queue=qsum / max(horizon, 1),
+        mean_queue_tail=qsum_tail / max(horizon - tail, 1),
+        final_queue=policy.queue_len(),
+        utilization=occ_plane.mean(axis=0) / max(policy.L, 1),
+        extras={"occupancy": occ_plane, "departed_cum": dep_cum},
+    )
+
+
+class CollapsedMaxBFJS(MultiResourceBFJS):
+    """Baseline: the paper's max-collapse preprocessing inside the same
+    engine — every job's demand is replaced by max(demand) * 1_R, so
+    resources are over-reserved (what Section VIII improves upon)."""
+
+    name = "mr-max-collapse"
+
+    def step(self, t, new_jobs, down=None, max_requeue=2):
+        for job in new_jobs:
+            job.demand = np.full(self.R, float(job.demand.max()))
+        super().step(t, new_jobs, down=down, max_requeue=max_requeue)

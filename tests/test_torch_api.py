@@ -85,17 +85,34 @@ def test_registry_and_unported_options():
         run_policy(wl, policy="bfjs-mr2", device="cpu", **CFG)
     with pytest.raises(ValueError, match="unknown engine"):
         run_policy(wl, engine="pallas", device="cpu", **CFG)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        run_policy(wl, engine="reference", device="cpu", **CFG)
+    # every policy runs engine="reference", one cluster or an ensemble,
+    # and equals its scan engine here (nothing is truncated)
+    for policy in available_policies():
+        extra = dict(J=3, K=8) if policy.startswith("vqs") else {}
+        ref = run_policy(wl, 3, policy=policy, engine="reference",
+                         device="cpu", **{**CFG, **extra})
+        ens = monte_carlo_policy(wl, [5, 3], policy=policy,
+                                 engine="reference", device="cpu",
+                                 **{**CFG, **extra})
+        scan = monte_carlo_policy(wl, [5, 3], policy=policy, engine="scan",
+                                  device="cpu", work_steps=48,
+                                  **{**CFG, **extra})
+        assert ref.queue_len.shape == (80,) and ens.dropped.shape == (2,)
+        assert int(scan.truncated.sum()) == 0
+        _equal(ens, scan)
+        _equal(ref, type(ens)(*(None if x is None else x[1] for x in ens)))
+    # as in JAX, bfjs's oracle is not offered on explicit streams
+    with pytest.raises(ValueError, match="no stream-driven reference"):
+        run_policy_streams(
+            streams_from_numpy(np.zeros(4), np.zeros((4, 6)),
+                               np.ones((4, 4 * 6 + 6)), device="cpu"),
+            engine="reference", L=4, K=6, Qcap=8, A_max=6)
     for policy in ("vqs", "vqs-bf"):
-        with pytest.raises(NotImplementedError, match="item 4a"):
-            run_policy(wl, policy=policy, engine="reference", device="cpu",
-                       **CFG)
         with pytest.raises(ValueError, match="single-resource"):
             run_policy(Workload(lam=1.0, mu=0.1, sampler=_sampler,
                                 num_resources=2), policy=policy,
                        device="cpu", **CFG)
-    # bfjs-mr has a "reference" engine; it takes no unknown engine either
+    # bfjs-mr takes no unknown engine either
     ref = run_policy(wl, policy="bfjs-mr", engine="reference", device="cpu",
                      **CFG)
     assert ref.occupancy.shape == (80, 1)
@@ -161,7 +178,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "'core.fenwick', 'core.queues', 'core.cluster_state', "
         "'core.distributions', 'core.base', 'core.simulator', "
         "'core.best_fit', 'core.fifo', 'core.vqs', 'core.vqs_bf', "
-        "'core.stability', 'core.maxweight', 'core.engine.supervisor'):\n"
+        "'core.stability', 'core.maxweight', 'core.engine.supervisor', "
+        "'core.trace'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
