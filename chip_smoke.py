@@ -67,7 +67,21 @@ port's paths through the entry points a user calls:
     as the serve path, and one ``prefill`` at B = 4, S = 8192 (cut from
     32 x 32768): ssd_scan's three stage kernels on every prefill layer,
     no kernel on decode.  Profiles of the prefill (by kernel, then by
-    operator and call site) and of one decode step follow.
+    operator and call site) and of one decode step follow;
+  * chunked, streaming and supervised paths (phase 12, ``runtime_phase``)
+    at the bfjs and vqs paths' width (L = 1000, K = 16, A_max = 48, Qcap
+    = 4096) on the first ``PLAIN_MEMBERS`` x ``PLAIN_SLOTS`` of card-made
+    streams: a ``run_policy_streams(chunk=50, checkpoint_dir=...)`` bfjs
+    sweep at load 1.6 (a queue in its carry by the second checkpoint)
+    SIGKILLed in a child process after that checkpoint and resumed, equal
+    to one bfjs kernel launch; a vqs
+    ``stream_policy`` at load 0.8 staged from host chunks, its third
+    checkpoint truncated, resumed under a ``Supervisor`` with the audit
+    over a source with planted ingestion faults (one rollback, the planted
+    retries), equal to one vqs kernel launch; ``stream_policy(engine=
+    "cuda")`` refused with a ValueError and no launch; the audited
+    ``"cuda"`` bfjs path at load 0.85 on all 128 members x 1000 slots
+    passing and a tampered occupancy failing.
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; it must launch its own kernel and no other.  The
@@ -83,7 +97,9 @@ with one entry per kernel, eight, ssd_scan last (launches, error against the
 plain version, kernel, plain, bound and library times; the attention
 kernels' and SDPA's times are device times of a CUDA graph of calls, since
 an eager decode call is bound by the host; best_fit's row adds ``ms_g1``,
-the single-problem ``ops.best_fit`` at the same law); the last line is
+the single-problem ``ops.best_fit`` at the same law; the bfjs and vqs rows
+add ``launches_phase_12``, their launches on phase 12's paths); the last
+line is
 ``{"ok": true, "device": ...}``.  Any failed phase raises, and the script
 exits non-zero without a result — also when no CUDA device is present.
 """
@@ -1463,6 +1479,325 @@ def mamba_path(dev, seed: int, counters, reset_counters) -> dict:
     return launches
 
 
+#: Slots a chunk of the phase-12 sweeps and streams: 250 slots in five
+#: checkpointed boundaries.
+RUNTIME_CHUNK = 50
+
+#: The SIGKILL child of phase 12a: a bfjs sweep of the streams in argv[2]
+#: (an .npz) on device argv[4] with config argv[3] (JSON), chunked at
+#: argv[5] slots with checkpoints in argv[1], killed from inside the
+#: checkpoint writer right after save 2 (no cleanup, no atexit).
+KILLED_SWEEP = r"""
+import json, os, signal, sys
+import numpy as np
+import repro_torch.core.engine.chunked as chunked
+from repro_torch.convert import streams_from_numpy
+from repro_torch.core.engine import run_policy_streams
+
+planes = np.load(sys.argv[2])
+streams = streams_from_numpy(planes["n"], planes["sizes"], planes["durs"],
+                             device=sys.argv[4])
+real, saves = chunked._save_step, [0]
+
+
+def killing_save(*args, **kwargs):
+    real(*args, **kwargs)
+    saves[0] += 1
+    if saves[0] == 2:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+chunked._save_step = killing_save
+run_policy_streams(streams, policy="bfjs", engine="scan",
+                   chunk=int(sys.argv[5]), checkpoint_dir=sys.argv[1],
+                   **json.loads(sys.argv[3]))
+sys.exit("survived past the kill point")
+"""
+
+
+class FlakyChunks:
+    """A chunk source that raises ``OSError`` on a fixed schedule
+    (``faults``: chunk index -> failures) and re-yields the same chunk on
+    the next pull — the supervised source contract."""
+
+    def __init__(self, chunks, faults: dict):
+        self.chunks, self.faults, self.i = list(chunks), dict(faults), 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.faults.get(self.i, 0):
+            self.faults[self.i] -= 1
+            raise OSError(f"planted ingestion fault on chunk {self.i}")
+        if self.i >= len(self.chunks):
+            raise StopIteration
+        self.i += 1
+        return self.chunks[self.i - 1]
+
+
+def runtime_phase(dev, seed: int, counters, reset_counters, rows: dict,
+                  G: int = 128, L: int = 1000, K: int = 16,
+                  Qcap: int = 4096, A_max: int = 48, T: int = 1000,
+                  members: int = PLAIN_MEMBERS,
+                  slots: int = PLAIN_SLOTS) -> None:
+    """Phase 12: the crash-safe chunked sweep, the supervised stream and
+    the audit at the bfjs and vqs paths' width, on the first ``members`` x
+    ``slots`` of card-made ensemble streams (the scan engine there is
+    host-bound, as the plain versions are); the audit on all ``G`` x
+    ``T``.
+
+    (a) a bfjs sweep at load 1.6, chunk 50, SIGKILLed in a child process
+        after its second checkpoint and resumed here, equal to one launch
+        of the bfjs kernel on the same streams; the carry saved at that
+        checkpoint holds a queue (the queue and retry planes are restored);
+    (b) a vqs stream (J = 4) at load 0.8 stopped after 3 chunks, its third
+        checkpoint truncated, resumed under a Supervisor with the audit
+        over a source with planted ingestion faults: one rollback, the
+        planted retries, equal to one launch of the vqs kernel;
+    (c) ``stream_policy(engine="cuda")`` raises a ValueError naming the
+        carry, launching nothing;
+    (d) the audited ``"cuda"`` bfjs path at load 0.85 on all members
+        passes, and the same result with one occupancy above L fails the
+        audit."""
+    import os
+    import signal
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.engine import (CheckpointRollbackWarning,
+                                         InvariantViolation, RetryPolicy,
+                                         Supervisor, SupervisorWarning,
+                                         audit_result, chunked,
+                                         ensemble_streams,
+                                         iter_stream_chunks,
+                                         run_policy_streams, stream_policy,
+                                         streaming)
+
+    t_phase = time.perf_counter()
+    g, Tp, C = members, slots, RUNTIME_CHUNK
+    mu, size_mean = 0.01, 0.5
+    cfg = dict(L=L, K=K, Qcap=Qcap, A_max=A_max)
+    cfg_v = dict(cfg, J=4)
+    seeds = range(seed, seed + G)
+    saves = {"bfjs": [], "vqs": []}  # (ms, npz bytes) of timed boundaries
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(save, tag):
+        def wrapper(checkpoint_dir, step, payload, extra):
+            t0 = time.perf_counter()
+            save(checkpoint_dir, step, payload, extra)
+            saves[tag].append(((time.perf_counter() - t0) * 1e3,
+                               os.path.getsize(os.path.join(
+                                   checkpoint_dir, f"step_{step:08d}",
+                                   "arrays.npz"))))
+        return wrapper
+
+    def head(st):
+        return type(st)(*(None if x is None else x[:g, :Tp].contiguous()
+                          for x in st))
+
+    def launched(tag: str, own: str | None) -> None:
+        """The counts since the last reset: ``own`` once, nothing else."""
+        got = {n: c.count for n, c in counters.items() if c.count}
+        if got != ({} if own is None else {own: 1}):
+            raise AssertionError(f"{tag}: launches {got}, expected "
+                                 f"{'none' if own is None else own + ' once'}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runtime_") as tmp:
+        # -- 12a. a SIGKILLed bfjs sweep, resumed --------------------------
+        # overloaded, so every member's carry holds a queue by the kill
+        lam_a = 1.6 * L * mu / size_mean
+        full_a = ensemble_streams(seeds, lam_a, mu, uniform(0.1, 0.9), L=L,
+                                  K=K, A_max=A_max, horizon=T, device=dev)
+        sa = head(full_a)
+        del full_a
+        planes = os.path.join(tmp, "bfjs_streams.npz")
+        np.savez(planes, **{f: getattr(sa, f).cpu().numpy()
+                            for f in ("n", "sizes", "durs")})
+        ck_a = os.path.join(tmp, "ck_bfjs")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", KILLED_SWEEP, ck_a, planes,
+             json.dumps(cfg), str(dev), str(C)],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(f"12a: the sweep's child ended with "
+                                 f"{child.returncode}, not SIGKILL: "
+                                 f"{child.stderr[-2000:]}")
+        if ckpt.latest_step(ck_a) != 2:
+            raise AssertionError(f"12a: checkpoints {ckpt.list_steps(ck_a)} "
+                                 "after the kill, expected the newest 2")
+        reset_counters()
+        real_save = chunked._save_step
+        chunked._save_step = timed(real_save, "bfjs")
+        try:
+            t0 = time.perf_counter()
+            got = run_policy_streams(sa, policy="bfjs", engine="scan",
+                                     chunk=C, checkpoint_dir=ck_a,
+                                     resume=True, **cfg)
+            sync()
+            resume_s = time.perf_counter() - t0
+        finally:
+            chunked._save_step = real_save
+        launched("12a chunked scan path", None)
+        reset_counters()
+        want = run_policy_streams(sa, policy="bfjs", engine="cuda",
+                                  strict=True, **cfg)
+        sync()
+        launched("12a comparison", "bfjs")
+        if got.queue_len.shape != (g, Tp):
+            raise AssertionError("12a: resumed result has the wrong shape")
+        require_equal("12a resumed sweep vs the bfjs kernel", got, want)
+        q_kill = got.queue_len[:, 2 * C - 1]
+        if not int(q_kill.max()) > 0:
+            raise AssertionError(f"12a: queues {q_kill.tolist()} at the "
+                                 "killed checkpoint; none carried a queue")
+        print(f"12a bfjs sweep G={g} L={L} K={K} Qcap={Qcap} "
+              f"A_max={A_max} T={Tp} lam={lam_a} chunk={C}: child "
+              f"SIGKILLed after checkpoint 2 (rc {child.returncode}, "
+              f"{child_s:.1f} s), resumed from step 2 in {resume_s:.1f} s, "
+              f"equal to one bfjs kernel launch on every field; queues "
+              f"carried through checkpoint 2 {q_kill.tolist()}, mean queue "
+              f"{float(got.queue_len.double().mean()):.3f}, truncated "
+              f"{int(got.truncated.sum())}, dropped "
+              f"{int(got.dropped.sum())}")
+        del sa, got, want
+
+        # -- 12b. a supervised vqs stream rolls back and retries -----------
+        lam_v = 0.8 * L * mu / size_mean
+        full_v = ensemble_streams(seeds, lam_v, mu, uniform(0.1, 0.9), L=L,
+                                  K=K, A_max=A_max, horizon=T, device=dev)
+        sb = head(full_v)
+        del full_v
+        sb_host = type(sb)(*(None if x is None else x.cpu() for x in sb))
+        ck_b = os.path.join(tmp, "ck_vqs")
+        planted = {1: 1, 3: 2}
+        sup = Supervisor(retry=RetryPolicy(max_retries=3, seed=seed),
+                         quarantine_dir=os.path.join(tmp, "quarantine"))
+        real_save = streaming._save_step
+        streaming._save_step = timed(real_save, "vqs")
+        try:
+            reset_counters()
+            t0 = time.perf_counter()
+            stream_policy(iter_stream_chunks(sb_host, C), policy="vqs",
+                          checkpoint_dir=ck_b, stop_after_chunks=3,
+                          device=dev, **cfg_v)
+            stop_s = time.perf_counter() - t0
+            if ckpt.list_steps(ck_b) != [1, 2, 3]:
+                raise AssertionError(f"12b: checkpoints "
+                                     f"{ckpt.list_steps(ck_b)}")
+            victim = os.path.join(ck_b, "step_00000003", "arrays.npz")
+            with open(victim, "r+b") as f:
+                f.truncate(os.path.getsize(victim) // 2)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always", SupervisorWarning)
+                t0 = time.perf_counter()
+                res = stream_policy(
+                    FlakyChunks(iter_stream_chunks(sb_host, C), planted),
+                    policy="vqs", checkpoint_dir=ck_b, resume=True,
+                    supervisor=sup, audit=True, device=dev, **cfg_v)
+                sync()
+                stream_s = time.perf_counter() - t0
+        finally:
+            streaming._save_step = real_save
+        launched("12b streaming path", None)
+        rows["vqs"]["launches_phase_12"] = counters["vqs"].count
+        reset_counters()
+        want = run_policy_streams(sb, policy="vqs", engine="cuda",
+                                  strict=True, **cfg_v)
+        sync()
+        launched("12b comparison", "vqs")
+        require_equal("12b supervised stream vs the vqs kernel",
+                      tuple(res)[:8], tuple(want)[:8])
+        rollback_warned = sum(issubclass(w.category,
+                                         CheckpointRollbackWarning)
+                              for w in caught)
+        if (res.rollbacks, res.retries, res.quarantined) != (
+                1, sum(planted.values()), 0) or rollback_warned != 1:
+            raise AssertionError(
+                f"12b: rollbacks {res.rollbacks}, retries {res.retries}, "
+                f"quarantined {res.quarantined}, rollback warnings "
+                f"{rollback_warned}; expected 1, "
+                f"{sum(planted.values())}, 0, 1")
+        mean_q = float(res.queue_len.double().mean())
+        if not mean_q > 0:
+            raise AssertionError("12b: the vqs stream never queued")
+        print(f"12b vqs stream G={g} J=4 L={L} K={K} Qcap={Qcap} "
+              f"A_max={A_max} T={Tp} lam={lam_v} chunk={C}: stopped after "
+              f"3 chunks ({stop_s:.1f} s), step 3 truncated, resumed under "
+              f"the supervisor with the audit in {stream_s:.1f} s: "
+              f"rollbacks {res.rollbacks}, retries {res.retries} (planted "
+              f"{sum(planted.values())}), quarantined {res.quarantined}; "
+              f"equal to one vqs kernel launch on every field; mean queue "
+              f"{mean_q:.3f}")
+        print(f"12b streaming counters (resumed run, {Tp // C - 2} "
+              f"chunks): chunks_behind {res.chunks_behind}, host_stall_us "
+              f"{res.host_stall_us:.1f}")
+        for tag, boundary in saves.items():
+            ms = [m for m, _ in boundary]
+            print(f"12 checkpoint boundaries {tag}: {len(ms)} saves, "
+                  f"{np.mean(ms):.1f} ms mean ({min(ms):.1f}-"
+                  f"{max(ms):.1f}), {boundary[-1][1]} bytes of arrays.npz "
+                  f"a boundary ({g} members)")
+
+        # -- 12c. the "cuda" request cannot carry a stream ------------------
+        reset_counters()
+        try:
+            stream_policy(iter_stream_chunks(sb, C), policy="vqs",
+                          engine="cuda", device=dev, **cfg_v)
+        except ValueError as e:
+            if "carry a streaming run" not in str(e):
+                raise
+            refused = str(e)
+        else:
+            raise AssertionError("12c: engine=\"cuda\" streaming was not "
+                                 "refused")
+        launched("12c cuda streaming request", None)
+        print(f"12c stream_policy(engine=\"cuda\"): ValueError "
+              f"({refused[:72]}...); no kernel launched")
+        del sb, sb_host, res, want
+
+        # -- 12d. the audit at full width ---------------------------------
+        lam_d = 0.85 * L * mu / size_mean
+        full_b = ensemble_streams(seeds, lam_d, mu, uniform(0.1, 0.9), L=L,
+                                  K=K, A_max=A_max, horizon=T, device=dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        res = run_policy_streams(full_b, policy="bfjs", engine="cuda",
+                                 strict=True, audit=True, **cfg)
+        sync()
+        audit_ms = (time.perf_counter() - t0) * 1e3
+        launched("12d audited bfjs path", "bfjs")
+        rows["bfjs"]["launches_phase_12"] = counters["bfjs"].count
+        if res.queue_len.shape != (G, T):
+            raise AssertionError("12d: wrong result shape")
+        evil = res.occupancy.clone()
+        evil[G // 2, T // 2] = L + 1.0
+        try:
+            audit_result(full_b, res._replace(occupancy=evil),
+                         policy="bfjs", config=cfg)
+        except InvariantViolation as e:
+            if e.invariant != "occupancy_capacity":
+                raise
+        else:
+            raise AssertionError("12d: an occupancy above L passed the "
+                                 "audit")
+        print(f"12d audited bfjs path G={G} L={L} T={T} lam={lam_d}: "
+              f"run_policy_streams(engine=\"cuda\", audit=True) passes in "
+              f"{audit_ms:.1f} ms (kernel + audit, host clock); occupancy "
+              f"L + 1 at one slot fails occupancy_capacity")
+        del full_b, res, evil
+    print(f"chunked, streaming and supervised phase: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1943,6 +2278,10 @@ def main() -> int:
     launches = mamba_path(dev, args.seed, counters, reset_counters)
     rows["ssd_scan"]["launches"] = launches["ssd_scan"]
     clock.done("11 mamba path")
+
+    # -- 12. chunked, streaming and supervised paths at the scheduler width
+    runtime_phase(dev, args.seed, counters, reset_counters, rows)
+    clock.done("12 chunked, streaming and supervised paths")
 
     print(f"chip_smoke: all phases passed in {clock.total():.1f} s")
     order = ("bfjs", "vqs", "vqs_bf", "bfjs_mr", "best_fit",

@@ -20,9 +20,12 @@ Randomness is seeded by integers — one per ensemble member — in place of
 the JAX package's PRNG keys.  Entry points run on the card unless
 ``device="cpu"`` is passed.
 
-The JAX package's mesh sharding, checkpointed chunks and invariant audit
-are not ported yet; asking for them raises ``NotImplementedError`` naming
-the ROADMAP item.
+``chunk=`` / ``checkpoint_dir=`` / ``resume=`` / ``stop_after_chunks=``
+run a crash-safe chunked sweep on the scan engine
+(``core.engine.chunked``), and ``audit=True`` holds the result to the
+runtime invariants (``core.engine.supervisor.audit_result``).  The JAX
+package's mesh sharding is not ported yet: ``mesh=`` / ``devices=`` raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,7 +36,10 @@ from .bfjs import (ENGINES, monte_carlo_bfjs_workload, run_bfjs_trace,
                    run_bfjs_workload)
 from .bfjs_mr import (monte_carlo_bfjs_mr_workload, run_bfjs_mr_trace,
                       run_bfjs_mr_workload)
+from .chunked import run_chunked
+from .sharding import monte_carlo_chunked
 from .streams import PolicyResult, SchedStreams
+from .supervisor import audit_result
 from .vqs import monte_carlo_vqs_workload, run_vqs_trace, run_vqs_workload
 from .vqs_bf import (monte_carlo_vqs_bf_workload, run_vqs_bf_trace,
                      run_vqs_bf_workload)
@@ -79,21 +85,25 @@ def _check_engine(engine: str, policy: str) -> None:
                          f"{', '.join(ENGINES)}")
 
 
-def _not_ported(mesh=None, devices=None, chunk=None, checkpoint_dir=None,
-                resume=False, stop_after_chunks=None, audit=False) -> None:
+def _not_ported(mesh=None, devices=None) -> None:
     if mesh is not None or devices is not None:
         raise NotImplementedError(
             "mesh=/devices= (ensemble sharding over several cards) is not "
             "ported yet (ROADMAP queue 1 item 9)")
-    if chunk is not None or checkpoint_dir is not None or resume \
-            or stop_after_chunks is not None:
-        raise NotImplementedError(
-            "chunk=/checkpoint_dir=/resume= (checkpointed chunked sweeps) "
-            "are not ported yet (ROADMAP queue 1 item 7)")
-    if audit:
-        raise NotImplementedError(
-            "audit=True (the runtime invariant auditor) is not ported yet "
-            "(ROADMAP queue 1 item 8)")
+
+
+def _chunked_only(engine: str, chunk: int | None) -> None:
+    """The checks of a checkpointed chunked request: the scan engine (its
+    carry is the whole simulation state; the kernels keep theirs in shared
+    memory for one launch) and a chunk length."""
+    if engine != "scan":
+        raise ValueError(
+            f'checkpointed chunked sweeps need engine="scan" (its '
+            f"carry is the entire simulation state); got "
+            f"engine={engine!r}")
+    if chunk is None:
+        raise ValueError("checkpoint_dir=/resume= need chunk= (the "
+                         "boundary interval, in slots)")
 
 
 register_policy(PolicySpec(
@@ -148,12 +158,42 @@ def run_policy_streams(streams: SchedStreams, *, policy: str = "bfjs",
                        mesh=None, devices=None, audit: bool = False,
                        **config) -> PolicyResult:
     """Replay explicit streams (one cluster, or an ensemble with a leading
-    G axis) through a policy engine, on the streams' device."""
+    G axis) through a policy engine, on the streams' device.
+
+    ``chunk=``/``checkpoint_dir=`` turn the sweep crash-safe: the scan
+    engine runs in ``chunk``-slot pieces, persisting its complete carry at
+    every boundary (atomic rename) so ``resume=True`` continues a killed
+    sweep BIT-EXACTLY where it stopped (``core.engine.chunked``).  Only
+    ``engine="scan"`` supports this; any other engine raises.
+
+    For streams that are NOT fully materialized — an unbounded arrival
+    iterator, a trace read chunk by chunk — use
+    ``core.engine.stream_policy``, which threads the same carried state
+    through any chunk iterator and bit-matches this function on any
+    finite trace.
+
+    ``audit=True`` runs the runtime invariant auditor over the finished
+    result (``core.engine.supervisor.audit_result`` — job conservation,
+    capacity bounds, fault accounting) and raises a typed
+    ``InvariantViolation`` naming the failed counter; it needs explicit
+    ``L=``/``K=`` in the config."""
     _check_engine(engine, policy)
-    _not_ported(mesh=mesh, devices=devices, chunk=chunk,
-                checkpoint_dir=checkpoint_dir, resume=resume,
-                stop_after_chunks=stop_after_chunks, audit=audit)
-    return get_policy(policy).run_streams(streams, engine=engine, **config)
+    _not_ported(mesh=mesh, devices=devices)
+    audit_cfg = dict(config)
+
+    def _audited(res: PolicyResult) -> PolicyResult:
+        if audit:
+            audit_result(streams, res, policy=policy, config=audit_cfg)
+        return res
+
+    if chunk is not None or checkpoint_dir is not None or resume:
+        _chunked_only(engine, chunk)
+        return _audited(run_chunked(
+            streams, policy=policy, chunk=chunk,
+            checkpoint_dir=checkpoint_dir, resume=resume,
+            stop_after_chunks=stop_after_chunks, **config))
+    return _audited(get_policy(policy).run_streams(streams, engine=engine,
+                                                   **config))
 
 
 def monte_carlo_policy(workload: Workload, seeds=None, *,
@@ -165,14 +205,23 @@ def monte_carlo_policy(workload: Workload, seeds=None, *,
                        stop_after_chunks: int | None = None,
                        **config) -> PolicyResult:
     """One simulated cluster per integer seed, batched on a leading G axis;
-    "cuda" runs the ensemble as the kernel's grid of thread blocks."""
+    "cuda" runs the ensemble as the kernel's grid of thread blocks.
+    ``chunk=``/``checkpoint_dir=``/``resume=`` run the sweep crash-safe in
+    T-chunks on the scan engine (``sharding.monte_carlo_chunked``);
+    checkpoints name no device."""
     _check_engine(engine, policy)
     _require_workload("monte_carlo_policy", workload)
     if seeds is None:
         raise TypeError("monte_carlo_policy needs seeds= (one integer seed "
                         "per ensemble member)")
-    _not_ported(mesh=mesh, devices=devices, chunk=chunk,
-                checkpoint_dir=checkpoint_dir, resume=resume,
-                stop_after_chunks=stop_after_chunks)
+    _not_ported(mesh=mesh, devices=devices)
+    if chunk is not None or checkpoint_dir is not None or resume:
+        _chunked_only(engine, chunk)
+        return monte_carlo_chunked(workload, seeds, policy=policy,
+                                   chunk=chunk,
+                                   checkpoint_dir=checkpoint_dir,
+                                   resume=resume,
+                                   stop_after_chunks=stop_after_chunks,
+                                   **config)
     return get_policy(policy).monte_carlo(workload, seeds, engine=engine,
                                           **config)

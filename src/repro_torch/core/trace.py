@@ -436,8 +436,8 @@ class ResumableTraceReader:
     and would silently truncate the trace.  This wrapper makes the reader
     actually retryable: after an attempt fails, the NEXT ``next()`` call
     re-opens the file from scratch and fast-forwards past the chunks
-    already emitted, so a caller's retry-with-backoff (the JAX package's
-    ``core.engine.supervisor``, not ported yet) sees each chunk until it
+    already emitted, so a caller's retry-with-backoff
+    (``core.engine.supervisor``) sees each chunk until it
     either parses or exhausts its retries.  ``reopens`` counts the recoveries.
 
     Fast-forwarding re-parses the file head — O(file) per recovery, the

@@ -119,14 +119,22 @@ def test_registry_and_unported_options():
     with pytest.raises(ValueError, match="unknown engine"):
         run_policy(wl, policy="bfjs-mr", engine="pallas", device="cpu",
                    **CFG)
-    for kw, item in ((dict(mesh=object()), "item 9"),
-                     (dict(chunk=10), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            monte_carlo_policy(wl, seeds=[0], device="cpu", **kw, **CFG)
+    # only the ensemble sharding over several cards is left unported
     st = streams_from_numpy(np.zeros(4), np.zeros((4, 6)),
                             np.ones((4, 30)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run_policy_streams(st, audit=True, L=4, K=6, Qcap=8, A_max=6)
+    for kw in (dict(mesh=object()), dict(devices=2),
+               dict(devices=2, chunk=10)):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            monte_carlo_policy(wl, seeds=[0], device="cpu", **kw, **CFG)
+        with pytest.raises(NotImplementedError, match="item 9"):
+            run_policy_streams(st, L=4, K=6, Qcap=8, A_max=6, **kw)
+    # chunked sweeps and the audit run (tests/test_torch_chunked.py and
+    # tests/test_torch_supervisor.py hold them to JAX)
+    chunked = monte_carlo_policy(wl, seeds=[0, 1], device="cpu", chunk=30,
+                                 **CFG)
+    _equal(chunked, monte_carlo_policy(wl, seeds=[0, 1], device="cpu",
+                                       **CFG))
+    run_policy_streams(st, audit=True, L=4, K=6, Qcap=8, A_max=6)
     with pytest.raises(TypeError, match="seeds="):
         monte_carlo_policy(wl, device="cpu", **CFG)
     with pytest.raises(TypeError, match="Workload"):
@@ -179,7 +187,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "'core.distributions', 'core.base', 'core.simulator', "
         "'core.best_fit', 'core.fifo', 'core.vqs', 'core.vqs_bf', "
         "'core.stability', 'core.maxweight', 'core.engine.supervisor', "
-        "'core.trace'):\n"
+        "'core.trace', 'checkpoint.ckpt', 'core.engine.chunked', "
+        "'core.engine.streaming', 'core.engine.sharding'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

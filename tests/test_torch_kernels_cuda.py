@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.engine import (Workload,  # noqa: E402
                                      ensemble_streams, monte_carlo_policy,
-                                     streams_from_trace)
+                                     run_policy_streams, streams_from_trace)
 from repro_torch.kernels.best_fit import best_fit as bf_kernel  # noqa: E402
 from repro_torch.kernels.bfjs_mr import bfjs_mr as bfjs_mr_kernel  # noqa: E402
 from repro_torch.kernels.bfjs_mr.ref import bfjs_mr_ref  # noqa: E402
@@ -500,6 +500,36 @@ def test_monte_carlo_vqs_cuda_engine_equals_scan_on_card(cuda, policy):
                              engine="scan", **cfg)
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+@pytest.mark.parametrize("policy", ["bfjs", "vqs"])
+def test_checkpointed_chunks_resume_to_the_kernel_on_card(cuda, policy,
+                                                          tmp_path):
+    """A chunked sweep of card streams, stopped at a boundary and resumed
+    from its checkpoint (the scan engine on the card), equals the policy's
+    kernel straight through — one launch, none from the chunked runs."""
+    st = ensemble_streams(range(3), 0.5, 0.02, _sampler(0.1, 0.9), L=16,
+                          K=8, A_max=8, horizon=200, device=cuda)
+    cfg = dict(L=16, K=8, Qcap=256, A_max=8)
+    if policy == "vqs":
+        cfg["J"] = 4
+    mod = bfjs_kernel if policy == "bfjs" else vqs_kernel
+    before = mod.launches.count
+    want = run_policy_streams(st, policy=policy, engine="cuda", strict=True,
+                              **cfg)
+    torch.cuda.synchronize()
+    assert mod.launches.count == before + 1
+    d = str(tmp_path)
+    part = run_policy_streams(st, policy=policy, chunk=50, checkpoint_dir=d,
+                              stop_after_chunks=2, **cfg)
+    assert part.queue_len.shape == (3, 100)
+    got = run_policy_streams(st, policy=policy, chunk=50, checkpoint_dir=d,
+                             resume=True, **cfg)
+    assert mod.launches.count == before + 1
+    assert got.queue_len.device.type == "cuda"
+    assert int(want.queue_len.max()) > 0
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def _vec_sampler(lo, hi, R):
