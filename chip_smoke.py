@@ -81,7 +81,22 @@ port's paths through the entry points a user calls:
     retries), equal to one vqs kernel launch; ``stream_policy(engine=
     "cuda")`` refused with a ValueError and no launch; the audited
     ``"cuda"`` bfjs path at load 0.85 on all 128 members x 1000 slots
-    passing and a tampered occupancy failing.
+    passing and a tampered occupancy failing;
+  * fleet runtime (phase 13): ``monte_carlo_policy(engine="cuda",
+    devices=[card, card])`` (``devices=torch.cuda.device_count()`` on a
+    machine with more cards) on the bfjs, vqs, vqs-bf and bfjs-mr paths at
+    full width, equal to the unsharded launch, one launch a shard; a chunked
+    bfjs sweep at load 1.6 checkpointed on 2 shards and resumed on 1, equal
+    to the bfjs kernel; ``autotune(engine="cuda")`` on the vqs path into a
+    throwaway cache, its verified winner found again by
+    ``monte_carlo_policy``; ``estimate_capacity`` on 1000 replicas at load
+    0.85, unsharded and sharded alike, and 500 replicas saturating; the
+    live admission kernel against its plain version on random op
+    sequences; and, on the serve path's weights (so inside phase 9),
+    llama3-8b behind ``ServingEngine(admission="live")`` and ``"host"``
+    (one replica of 3 slots, 12 requests that fill the queue and meet full
+    slots), equal placements, tokens and stats, one admission launch a
+    controller call.
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; it must launch its own kernel and no other.  The
@@ -93,8 +108,8 @@ bench-shape comparisons' horizons halved (``BENCH_SLOTS``), when the
 trace path came in, to keep the run inside its limit on a slow host).
 Each phase prints its host seconds on a line of its own, and the "all phases
 passed" line the total.  The second-to-last line of stdout is a JSON object
-with one entry per kernel, eight, ssd_scan last (launches, error against the
-plain version, kernel, plain, bound and library times; the attention
+with one entry per kernel, nine, live_admission last (launches, error
+against the plain version, kernel, plain, bound and library times; the attention
 kernels' and SDPA's times are device times of a CUDA graph of calls, since
 an eager decode call is bound by the host; best_fit's row adds ``ms_g1``,
 the single-problem ``ops.best_fit`` at the same law; the bfjs and vqs rows
@@ -1046,9 +1061,11 @@ def check_served(tag: str, cfg, engine, done) -> None:
         raise AssertionError(f"{tag}: the admission queue never filled")
 
 
-def serve_path(dev, seed: int, counters, reset_counters) -> dict:
+def serve_path(dev, seed: int, counters, reset_counters,
+               with_weights=None) -> dict:
     """The LM serving path at llama3-8b's full width; returns the two
-    attention kernels' launches in the path's run."""
+    attention kernels' launches in the path's run.  ``with_weights(cfg,
+    params)`` runs on the loaded bf16 weights before they are freed."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -1124,6 +1141,8 @@ def serve_path(dev, seed: int, counters, reset_counters) -> dict:
           f"flash_attention {launches['flash_attention']}")
     del engine
     profile_decode_step(cfg, params, dev)
+    if with_weights is not None:
+        with_weights(cfg, params)
     del params
     torch.cuda.empty_cache()
 
@@ -1798,15 +1817,495 @@ def runtime_phase(dev, seed: int, counters, reset_counters, rows: dict,
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
+#: Widths of phase 13's sharded paths: the bfjs, vqs, vqs-bf and bfjs-mr
+#: paths of phases 4-6 (L = 1000, K = 16, A_max = 48, 128 members x 1000
+#: slots, sizes U[0.1, 0.9], mu = 0.01), each at its own load.
+FLEET_PATHS = {
+    "bfjs": ("bfjs", 0.85, dict(Qcap=4096), 1),
+    "vqs": ("vqs", 0.6, dict(J=4, Qcap=1024), 1),
+    "vqs-bf": ("vqs_bf", 0.6, dict(J=4, Qcap=1024), 1),
+    "bfjs-mr": ("bfjs_mr", 0.8, dict(Qcap=1024), 2),
+}
+
+
+#: 13c's work lists, all shorter than the default ``A_max + 4`` = 52: on
+#: the vqs path at load 0.6 the short ones truncate and are rejected, the
+#: long ones bit-match the default and may win.
+FLEET_TUNE_GRID = (8, 16, 24, 32, 40, 48)
+
+
+def launched_only(tag: str, counters, want: dict) -> None:
+    """The launches since the last reset are exactly ``want``."""
+    got = {n: c.count for n, c in counters.items() if c.count}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+
+
+def fleet_phase(dev, seed: int, counters, reset_counters, G: int = 128,
+                L: int = 1000, K: int = 16, A_max: int = 48, T: int = 1000,
+                members: int = PLAIN_MEMBERS,
+                slots: int = PLAIN_SLOTS) -> None:
+    """Phase 13a-d: the ensemble split over devices, a chunked sweep
+    resumed on another shard count, the tuner and ``estimate_capacity``.
+
+    The mesh is ``[dev, dev]`` on a one-card machine (a repeated device,
+    two shards on one card) and ``devices=torch.cuda.device_count()``
+    where there are more.
+
+    (a) ``monte_carlo_policy(engine="cuda", devices=...)`` on the four
+        scheduler paths at full width equals the unsharded launch on every
+        field, one launch of the path's kernel a shard and no other;
+    (b) a chunked bfjs sweep at load 1.6 on the first ``members`` x
+        ``slots`` of card-made streams, stopped after 2 chunks on 2 shards
+        and resumed on 1, equals one bfjs kernel launch;
+    (c) ``autotune(engine="cuda")`` on the vqs path at load 0.6 over
+        ``FLEET_TUNE_GRID`` into a throwaway cache: some of those shorter
+        work lists are rejected (they truncate), some bit-match the
+        default and survive, the winner is cached, and
+        ``monte_carlo_policy`` finds it (a cache hit) and equals the
+        untuned run.  The card's kernels leave a slot's work list as soon
+        as nothing is pending, so a shorter list saves little time: the
+        winner's speedup is within noise;
+    (d) ``estimate_capacity`` on 1000 replicas at load 0.85 (mu = 0.01,
+        A_max = 48, 128 members, 1000 slots, the default U[0.05, 0.5] law,
+        104 work steps) unsharded and on the mesh: equal dicts but for
+        ``devices``, nothing truncated; then 500 replicas at the same
+        traffic, which must saturate."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core.engine import (TuningCache, Workload,
+                                         apply_tuned, autotune,
+                                         ensemble_streams,
+                                         monte_carlo_policy,
+                                         run_policy_streams)
+    from repro_torch.serving.engine import estimate_capacity
+
+    ncard = torch.cuda.device_count()
+    devices = [dev, dev] if ncard == 1 else ncard
+    D = 2 if ncard == 1 else ncard
+    mesh_name = f"[{dev}, {dev}]" if ncard == 1 else f"{ncard} cards"
+    mu, size_mean = 0.01, 0.5
+    seeds = range(seed, seed + G)
+
+    # -- 13a. sharded == unsharded on the four paths ------------------------
+    for policy, (name, load, extra, R) in FLEET_PATHS.items():
+        lam = load * L * mu / size_mean
+        wl = Workload(lam=lam, mu=mu, sampler=uniform(0.1, 0.9, R),
+                      num_resources=R)
+        cfg = dict(L=L, K=K, A_max=A_max, horizon=T, **extra)
+        reset_counters()
+        one_ms, ref = wall_ms(lambda: monte_carlo_policy(
+            wl, seeds=seeds, policy=policy, engine="cuda", strict=True,
+            device=dev, **cfg))
+        launched_only(f"13a {policy} unsharded", counters, {name: 1})
+        reset_counters()
+        shard_ms, res = wall_ms(lambda: monte_carlo_policy(
+            wl, seeds=seeds, policy=policy, engine="cuda", strict=True,
+            devices=devices, **cfg))
+        launched_only(f"13a {policy} on {mesh_name}", counters, {name: D})
+        require_equal(f"13a {policy} sharded vs unsharded", res, ref)
+        print(f"13a {policy} G={G} L={L} T={T} load {load}: on {mesh_name} "
+              f"equal to the unsharded run on every field; {name} launches "
+              f"{D} (one a shard); wall {shard_ms:.1f} ms sharded, "
+              f"{one_ms:.1f} ms unsharded (streams + kernels, host clock); "
+              f"truncated {int(res.truncated.sum())}")
+        del ref, res
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        # -- 13b. a chunked sweep checkpointed on 2 shards, resumed on 1 ---
+        cfg = dict(L=L, K=K, Qcap=4096, A_max=A_max)
+        lam = 1.6 * L * mu / size_mean
+        full = ensemble_streams(seeds, lam, mu, uniform(0.1, 0.9), L=L,
+                                K=K, A_max=A_max, horizon=T, device=dev)
+        st = type(full)(*(None if x is None else
+                          x[:members, :slots].contiguous() for x in full))
+        del full
+        ck = os.path.join(tmp, "ck")
+        reset_counters()
+        t0 = time.perf_counter()
+        part = run_policy_streams(st, policy="bfjs", engine="scan",
+                                  chunk=RUNTIME_CHUNK, checkpoint_dir=ck,
+                                  stop_after_chunks=2, devices=[dev, dev],
+                                  **cfg)
+        t1 = time.perf_counter()
+        got = run_policy_streams(st, policy="bfjs", engine="scan",
+                                 chunk=RUNTIME_CHUNK, checkpoint_dir=ck,
+                                 resume=True, devices=[dev], **cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launched_only("13b chunked scan path", counters, {})
+        if part.queue_len.shape != (members, 2 * RUNTIME_CHUNK):
+            raise AssertionError("13b: the stopped sweep ran the wrong "
+                                 "number of chunks")
+        want = run_policy_streams(st, policy="bfjs", engine="cuda",
+                                  strict=True, **cfg)
+        require_equal("13b resumed on 1 shard vs the bfjs kernel", got, want)
+        print(f"13b bfjs sweep G={members} T={slots} lam={lam} chunk="
+              f"{RUNTIME_CHUNK}: 2 chunks on 2 shards in {t1 - t0:.1f} s, "
+              f"resumed on 1 shard in {t2 - t1:.1f} s, equal to one bfjs "
+              f"kernel launch on every field; mean queue "
+              f"{float(got.queue_len.double().mean()):.3f}")
+        del st, part, got, want
+
+        # -- 13c. the tuner: a verified winner, found again -----------------
+        name, load, extra, _ = FLEET_PATHS["vqs"]
+        wl = Workload(lam=load * L * mu / size_mean, mu=mu,
+                      sampler=uniform(0.1, 0.9))
+        cfg = dict(L=L, K=K, A_max=A_max, horizon=T, device=dev, **extra)
+        env = "REPRO_TORCH_TUNING_CACHE"
+        path = os.path.join(tmp, "sched_tuning.json")
+        os.environ[env] = path
+        try:
+            t0 = time.perf_counter()
+            # (allow_plain only for a rehearsal on the CPU)
+            tuned = autotune(wl, seeds, policy="vqs", engine="cuda",
+                             work_steps_grid=FLEET_TUNE_GRID, rounds=3,
+                             allow_plain=dev.type == "cpu", **cfg)
+            tune_s = time.perf_counter() - t0
+            entry = TuningCache(path).get(tuned["key"])
+            if entry is None or entry["work_steps"] != tuned["work_steps"]:
+                raise AssertionError("13c: the winner was not cached")
+            default_ws = A_max + 4
+            if not (tuned["candidates"] and tuned["rejected"]):
+                raise AssertionError(
+                    f"13c: of {FLEET_TUNE_GRID}, all below the default "
+                    f"{default_ws}, {tuned['candidates']} bit-matched and "
+                    f"{tuned['rejected']} were rejected; the sweep should "
+                    "keep some and reject the short ones")
+            probe = dict(cfg)
+            meta = apply_tuned("vqs", "cuda", probe)
+            if meta["cache_hit"] != 1 \
+                    or probe.get("work_steps") != tuned["work_steps"]:
+                raise AssertionError(f"13c: no cache hit ({meta})")
+            reset_counters()
+            res = monte_carlo_policy(wl, seeds, policy="vqs", engine="cuda",
+                                     strict=True, **cfg)
+            launched_only("13c tuned path", counters, {name: 1})
+        finally:
+            os.environ[env] = "off"
+        base = monte_carlo_policy(wl, seeds, policy="vqs", engine="cuda",
+                                  strict=True, **cfg)
+        require_equal("13c tuned vs untuned vqs path", res, base)
+        print(f"13c autotune vqs path G={G} L={L} T={T} load {load} "
+              f"(engine cuda): of work_steps {FLEET_TUNE_GRID}, all below "
+              f"the default {default_ws}, {tuned['candidates']} bit-match "
+              f"the default run with nothing truncated and "
+              f"{tuned['rejected']} are rejected; winner "
+              f"{tuned['work_steps'] or f'the default {default_ws}'} "
+              f"at {tuned['us'] / 1e3:.2f} ms against {tuned['baseline_us'] / 1e3:.2f} ms "
+              f"(speedup {tuned['speedup']}, host clock, streams + kernel, "
+              f"best of 3); sweep {tune_s:.1f} s; monte_carlo_policy: "
+              f"cache hit {meta['cache_hit']}, tuned {meta['tuned']}, equal "
+              f"to the untuned run on every field")
+        del res, base
+
+    # -- 13d. estimate_capacity at the paper's width ------------------------
+    mean_slots, law_mean = 1.0 / mu, 0.275   # U[0.05, 0.5]
+    lam = 0.85 * L / (mean_slots * law_mean)
+    # at the default work list (A_max + 4 = 52 steps) about a third of
+    # this traffic's slots truncate (PERF.md, PR 24); twice that truncates
+    # none, so the estimate is the exact BF-J/S
+    kw = dict(ensembles=G, horizon=T, A_max=A_max, engine="cuda",
+              seed=seed, work_steps=2 * (A_max + 4))
+    reset_counters()
+    one_ms, one = wall_ms(lambda: estimate_capacity(L, lam, mean_slots,
+                                                    device=dev, **kw))
+    launched_only("13d estimate_capacity", counters, {"bfjs": 1})
+    reset_counters()
+    shard_ms, sharded = wall_ms(lambda: estimate_capacity(
+        L, lam, mean_slots, devices=devices, **kw))
+    launched_only("13d estimate_capacity on the mesh", counters,
+                  {"bfjs": D})
+    if sharded != {**one, "devices": D}:
+        raise AssertionError(f"13d: sharded {sharded} != unsharded {one}")
+    if one["truncated"]:
+        raise AssertionError(f"13d: {one['truncated']} slots truncated")
+    small = estimate_capacity(L // 2, lam, mean_slots, device=dev, **kw)
+    if not small["mean_tail_queue"] > 10 * max(one["mean_tail_queue"], 0.1):
+        raise AssertionError(f"13d: {L // 2} replicas did not saturate: "
+                             f"{small}")
+    print(f"13d estimate_capacity({L} replicas, lam={lam:.4f}, mean "
+          f"service {mean_slots:g} slots, {G} members x {T} slots, "
+          f"engine cuda): {one}; {one_ms:.1f} ms unsharded, {shard_ms:.1f} "
+          f"ms on {mesh_name} (host clock), equal but for devices; "
+          f"{L // 2} replicas saturate: mean tail queue "
+          f"{small['mean_tail_queue']:.1f}, p95 {small['p95_tail_queue']:g}, "
+          f"dropped {small['dropped']}, truncated {small['truncated']}")
+
+
+def live_op_bytes(op: str, ev, pre: tuple, post: tuple, out) -> int:
+    """Bytes one admission op must move on this run's data: every word it
+    needs read once, every word it changes written once.  ``pre`` and
+    ``post`` are the state's (residual, q_rid, q_size, q_len) as numpy
+    before and after the op, ``out`` its out buffer.
+
+    All ops read and write the three counters and write the 4-word header;
+    the residual and queue words that changed are written, and each moved
+    queue word's source read.  On top: event lanes read (admit, release,
+    tick); admit reads every residual (BF-J's least fit) and writes its
+    placements; release and tick read the residuals their live lanes name;
+    refill reads its replica's; BF-S (refill, and tick when a replica was
+    named) scans the live lanes' sizes and writes the placed ids and
+    replicas.  Words that kept their value are not counted, so this is a
+    floor of what the op must touch."""
+    from repro_torch.kernels.live_admission.ref import HEADER
+    res0, qr0, qs0, n0 = pre
+    res1, qr1, qs1, _ = post
+    moved = int((qr0 != qr1).sum() + (qs0 != qs1).sum())
+    words = 3 + 3 + HEADER + int((res0 != res1).sum()) + moved
+    if ev is not None:
+        words += ev.size
+    if op == "admit":
+        words += res0.size + ev.shape[1]
+    named = 0
+    if op in ("release", "tick"):
+        rep = ev[0][(ev[2] != 0) & (ev[0] >= 0) & (ev[0] < res0.size)]
+        named = np.unique(rep).size
+        words += named
+    if op == "refill":
+        words += 1
+    if op == "refill" or (op == "tick" and named):
+        words += n0 + moved + 2 * int(out[0])
+    if op == "push_front":
+        words += moved
+    return 4 * words
+
+
+#: (replicas, Qcap, event lanes) of the live admission checks: the serve
+#: fleet of 13e (one replica, the default Qcap, b_slots lanes) first, the
+#: shape the kernels line reports; then a short queue that overflows and
+#: drops tails, a wide fleet and a deep queue.
+LIVE_SHAPES = ((1, 512, 3), (2, 8, 6), (64, 512, 64), (1000, 4096, 256))
+
+
+def live_kernel_phase(dev, seed: int, counters, reset_counters,
+                      n_ops: int = 300) -> dict:
+    """Phase 13e, the kernel: the live admission kernel against its plain
+    version on random op sequences (``sequences.random_ops``) at
+    ``LIVE_SHAPES``, every out buffer and the final state exactly; an
+    invalid release raising on the next read on the card; the times per
+    call of the kernel and the plain version, the bound from
+    ``live_op_bytes``, and per tick of the host controller and of the
+    card's facade.  Returns the kernels line's row (without
+    ``launches``)."""
+    import torch
+    from repro_torch.cluster.admission import (AdmissionController,
+                                               PendingJob)
+    from repro_torch.core.engine import InvariantViolation
+    from repro_torch.kernels.live_admission.sequences import (random_ops,
+                                                              replay, stage)
+    from repro_torch.serving.live import LiveAdmission, init_state
+
+    rng = np.random.default_rng(seed)
+    row, dropped, invalid = None, 0, 0
+
+    def snapshot(st):
+        return (st.residual.numpy().copy(), st.q_rid.numpy().copy(),
+                st.q_size.numpy().copy(), int(st.q_len))
+
+    for L, Qcap, width in LIVE_SHAPES:
+        ops = random_ops(rng, L, n_ops, width)
+        on_cpu, on_card = stage(ops, "cpu"), stage(ops, dev)
+        plain = init_state(L, Qcap, "cpu")
+        want, plain_s, nbytes = [], 0.0, 0
+        for (op, ev, _, _), staged in zip(ops, on_cpu):
+            pre = snapshot(plain)
+            t0 = time.perf_counter()
+            want += replay(plain, [staged])
+            plain_s += time.perf_counter() - t0
+            nbytes += live_op_bytes(op, ev, pre, snapshot(plain),
+                                    want[-1].numpy())
+        plain_ms = plain_s * 1e3 / len(ops)
+        nbytes /= len(ops)
+        card = init_state(L, Qcap, dev)
+        reset_counters()
+        got = replay(card, on_card)
+        launched_only(f"13e kernel check L={L} Qcap={Qcap}", counters,
+                      {"live_admission": len(ops)})
+        err = 0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"13e L={L} Qcap={Qcap}: op {i} "
+                                     f"({ops[i][0]}) differs from plain")
+        for f in plain._fields:
+            a, b = getattr(card, f).cpu(), getattr(plain, f)
+            err = max(err, int((a.long() - b.long()).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"13e L={L} Qcap={Qcap}: state {f}")
+        dropped += int(plain.dropped)
+        invalid += int(plain.invalid)
+        # time a replay with no reads back: each op one launch
+        timed = init_state(L, Qcap, dev)
+        ms = time_ms(lambda: replay(timed, on_card, read=False),
+                     reps=3) / len(ops)
+        b_ms, b_by = bound(nbytes, 0)
+        print(f"13e live admission kernel L={L} Qcap={Qcap} lanes={width}: "
+              f"{len(ops)} random ops equal to plain (exact; dropped "
+              f"{int(plain.dropped)}, invalid {int(plain.invalid)}, queue "
+              f"{int(plain.q_len)}); kernel {ms:.4f} ms a call (CUDA "
+              f"events over a replay, launches issued back to back), plain "
+              f"{plain_ms:.4f} ms a call (host), bound {b_ms:.6f} ms "
+              f"({b_by}: {nbytes:.0f} B a call, the mean of what each op "
+              "must read and write on this data; below the card's launch "
+              "latency)")
+        if row is None:
+            row = dict(name="live_admission", route="cuda",
+                       source="src/repro_torch/kernels/csrc/live_admission.cu",
+                       replaces="src/repro/serving/live.py:200",
+                       max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       shape=dict(L=L, Qcap=Qcap, lanes=width))
+
+    if not (dropped and invalid):
+        raise AssertionError("13e: no queue overflow or invalid release was "
+                             "compared")
+    # an invalid release is counted on the card and raised on the next read
+    live = LiveAdmission(2, Qcap=8, device=dev)
+    live.release(0, (1 << 16) + 1)
+    try:
+        live.queue_len()
+    except InvariantViolation as e:
+        if e.invariant != "occupancy_capacity":
+            raise
+    else:
+        raise AssertionError("13e: an invalid release was not raised")
+
+    # a tick on the host controller and on the card's facade
+    for L in (1, 64):
+        per = {}
+        for kind in ("host", "live"):
+            # at most 20 jobs of >= 0.05 on a replica: 32 lanes a replica
+            ctl = AdmissionController(L) if kind == "host" else \
+                LiveAdmission(L, Qcap=512, tick_width=32 * L, device=dev)
+            r = np.random.default_rng(seed)
+            active, size_of, rid, t_s, ticks = {}, {}, 0, 0.0, 200
+            for _ in range(ticks):
+                # load ~0.69: L / 2 arrivals of mean 0.275, 5 ticks each
+                jobs = [PendingJob(rid=rid + i, frac=float(
+                    r.uniform(0.05, 0.5))) for i in range(int(r.integers(
+                        0, L + 1)))]
+                rid += len(jobs)
+                size_of.update({j.rid: j.size for j in jobs})
+                events = [(active.pop(x), size_of[x]) for x in list(active)
+                          if r.uniform() < 0.2]
+                t0 = time.perf_counter()
+                active.update(ctl.admit(jobs))
+                if kind == "host":
+                    for rep, size in events:
+                        ctl.release(rep, size)
+                    placed = []
+                    for rep in sorted({rep for rep, _ in events}):
+                        placed += ctl.refill(rep)
+                else:
+                    placed = ctl.tick(events)
+                ctl.queue_len()
+                t_s += time.perf_counter() - t0
+                active.update(placed)
+            per[kind] = (t_s * 1e3 / ticks, ctl.queue_len())
+        if per["host"][1] != per["live"][1]:
+            raise AssertionError(f"13e L={L}: host and live queues differ")
+        print(f"13e a tick (admit + releases + refills) over {L} "
+              f"replica(s), 200 random ticks: host controller "
+              f"{per['host'][0]:.4f} ms, live facade on the card "
+              f"{per['live'][0]:.4f} ms (host clock, launches and reads "
+              f"back included); final queues equal ({per['host'][1]})")
+        row[f"host_tick_ms_L{L}"] = per["host"][0]
+        row[f"live_tick_ms_L{L}"] = per["live"][0]
+    return row
+
+
+def live_requests(rng, vocab: int) -> list:
+    """13e's traffic: 12 requests, prompts U[8, 48] tokens (three of them
+    64 longer), U[2, 8] new tokens, submitted at once to one replica of 3
+    slots and a 192-token cache, so that the queue fills and requests that
+    fit its memory but find no free slot go back to the queue's head."""
+    from repro_torch.serving.engine import Request
+    lengths = rng.integers(8, 49, 12)
+    max_new = rng.integers(2, 9, 12)
+    lengths[rng.integers(0, 12, 3)] += 64
+    return [Request(rid=i, prompt=rng.integers(1, vocab, int(n)).astype(
+        np.int32), max_new=int(m))
+        for i, (n, m) in enumerate(zip(lengths, max_new))]
+
+
+def live_serve(cfg, params, dev, seed: int, counters,
+               reset_counters) -> dict:
+    """Phase 13e, the path: llama3-8b at full width on the serve path's
+    weights behind ``ServingEngine(admission="live")`` and ``"host"`` (one
+    replica, b_slots 3, c_max 192, audited), the same ``live_requests``:
+    placements, tokens and stats equal; the live engine launches the
+    admission kernel once a controller call and decode_attention once a
+    layer a decode step, and the host engine no admission kernel."""
+    import torch
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for admission in ("host", "live"):
+        engine = ServingEngine(cfg, params, num_replicas=1, b_slots=3,
+                               c_max=192, policy="bf", admission=admission,
+                               audit=True, device=dev)
+        reqs = live_requests(np.random.default_rng(seed), cfg.vocab_size)
+        decodes = []
+        rep = engine.replicas[0]
+        rep.decode = lambda toks, pos, _d=rep.decode: decodes.append(1) \
+            or _d(toks, pos)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.submit(reqs)
+        done = engine.run(max_steps=5_000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: c.count for n, c in counters.items() if c.count}
+        calls = getattr(engine.admission, "calls", 0)
+        ticks = len(engine.stats["queue_len"])
+        want = {"decode_attention": cfg.num_layers * len(decodes)}
+        if calls:
+            want["live_admission"] = calls
+        if got != want or (admission == "live") != (calls > 0):
+            raise AssertionError(f"13e {admission} serve: launches {got}, "
+                                 f"expected {want}")
+        if len(done) != 12 or any(len(r.out) != r.max_new for r in done):
+            raise AssertionError(f"13e {admission} serve: not every request "
+                                 "completed")
+        runs[admission] = ([(r.rid, r.replica, r.slot, r.out)
+                            for r in done], engine.stats, wall, ticks, calls)
+        del engine
+    host, live = runs["host"], runs["live"]
+    if live[0] != host[0] or live[1] != host[1]:
+        raise AssertionError("13e: the live engine's placements, tokens or "
+                             "stats differ from the host engine's")
+    stats = live[1]
+    if not (max(stats["queue_len"]) > 0 and stats["rejected_slots"] > 0):
+        raise AssertionError("13e: the queue never filled or no slot was "
+                             "rejected")
+    print(f"13e serve llama3-8b (full width, bf16) behind live and host "
+          f"admission: 12 requests, 1 replica x 3 slots, c_max 192: equal "
+          f"placements, tokens and stats; {live[3]} ticks, max queue "
+          f"{max(stats['queue_len'])}, admitted {stats['admitted']}, slot "
+          f"rejections {stats['rejected_slots']}; live: {live[4]} "
+          f"controller calls = {live[4]} live_admission launches, "
+          f"{live[2]:.2f} s; host {host[2]:.2f} s (host clock)")
+    return {"launches": live[4], "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    import os
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # no tuning cache: every launch takes the knobs this script gives it
+    # (phase 13c sweeps into a throwaway cache of its own)
+    os.environ["REPRO_TORCH_TUNING_CACHE"] = "off"
 
     from repro_torch.core.engine import (Workload, ensemble_streams,
                                          monte_carlo_policy)
@@ -1827,6 +2326,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.live_admission import live_admission as lk
     warnings.simplefilter("error", GracefulDegradationWarning)
     counters = {"best_fit": bf_kernel.launches,
                 "bfjs": bfjs_kernel.launches,
@@ -1835,7 +2335,8 @@ def main() -> int:
                 "vqs_bf": vqs_bf_kernel.launches,
                 "decode_attention": da.launches,
                 "flash_attention": fa.launches,
-                "ssd_scan": sk.launches}
+                "ssd_scan": sk.launches,
+                "live_admission": lk.launches}
 
     def reset_counters():
         for c in counters.values():
@@ -2260,8 +2761,13 @@ def main() -> int:
         **flash_phase(dev, args.seed))
     clock.done("8 attention kernels")
 
-    # -- 9. serve path: llama3-8b at full width --------------------------------
-    launches = serve_path(dev, args.seed, counters, reset_counters)
+    # -- 9. serve path: llama3-8b at full width; on its weights, phase 13e's
+    # serve behind live and host admission
+    live = {}
+    launches = serve_path(
+        dev, args.seed, counters, reset_counters,
+        with_weights=lambda cfg, params: live.update(live_serve(
+            cfg, params, dev, args.seed, counters, reset_counters)))
     for name in ("decode_attention", "flash_attention"):
         rows[name]["launches"] = launches[name]
     clock.done("9 serve path")
@@ -2283,9 +2789,19 @@ def main() -> int:
     runtime_phase(dev, args.seed, counters, reset_counters, rows)
     clock.done("12 chunked, streaming and supervised paths")
 
+    # -- 13. fleet runtime: sharding, the tuner, estimate_capacity, live
+    # admission (its serve ran in phase 9)
+    fleet_phase(dev, args.seed, counters, reset_counters)
+    rows["live_admission"] = dict(
+        live_kernel_phase(dev, args.seed, counters, reset_counters),
+        launches=live["launches"])
+    clock.done("13 fleet runtime")
+    print(f"phase 13e serve (run inside phase 9): {live['seconds']:.1f} s")
+
     print(f"chip_smoke: all phases passed in {clock.total():.1f} s")
     order = ("bfjs", "vqs", "vqs_bf", "bfjs_mr", "best_fit",
-             "decode_attention", "flash_attention", "ssd_scan")
+             "decode_attention", "flash_attention", "ssd_scan",
+             "live_admission")
     print(json.dumps({"kernels": [rows[k] for k in order], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

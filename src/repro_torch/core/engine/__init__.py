@@ -1,7 +1,9 @@
 """Accelerator engines of the port: streams, workload, the BF-J/S,
 multi-resource BF-J/S, VQS and VQS-BF engines, the policy registry, and
-the runtime around them — crash-safe chunked sweeps, streaming and
-supervision (torch counterpart of ``repro.core.engine``)."""
+the runtime around them — crash-safe chunked sweeps, streaming,
+supervision, the ensemble split over devices (``sharding``) and the
+shape-keyed ``work_steps`` tuner with its persistent cache (``tuning``)
+(torch counterpart of ``repro.core.engine``)."""
 from .api import (PolicySpec, available_policies, get_policy,
                   monte_carlo_policy, register_policy, run_policy,
                   run_policy_streams)
@@ -16,7 +18,8 @@ from .ops import (alignment_score_pair, best_fit_place, best_fit_server,
                   first_empty_positions, k_red_t, largest_fitting_job,
                   max_weight_config, row_sum_lr, vq_type_of,
                   vq_type_of_grid)
-from .sharding import monte_carlo_chunked
+from .sharding import (ENSEMBLE_AXIS, monte_carlo_chunked, resolve_mesh,
+                       sharded_monte_carlo)
 from .streaming import (iter_stream_chunks, stream_chunks_from_trace,
                         stream_policy)
 from .streams import (INF_SLOT, PolicyResult, SchedStreams,
@@ -27,6 +30,8 @@ from .supervisor import (INVARIANTS, CheckpointRollbackWarning,
                          InvariantViolation, RetryPolicy, Supervisor,
                          SupervisorError, SupervisorTimeout,
                          SupervisorWarning, audit_result, make_auditor)
+from .tuning import (TuningCache, apply_tuned, autotune, shape_key,
+                     tuning_enabled)
 from .vqs import (VQSState, monte_carlo_vqs, run_vqs, run_vqs_streams,
                   run_vqs_trace)
 from .vqs_bf import (VQSBFState, monte_carlo_vqs_bf, run_vqs_bf,
@@ -41,7 +46,9 @@ __all__ = [
     "monte_carlo_bfjs", "run_bfjs", "run_bfjs_streams", "run_bfjs_trace",
     "BFJSMRState", "monte_carlo_bfjs_mr_workload", "run_bfjs_mr_streams",
     "run_bfjs_mr_trace", "run_bfjs_mr_workload", "run_chunked",
-    "streams_fingerprint", "monte_carlo_chunked", "iter_stream_chunks",
+    "streams_fingerprint", "ENSEMBLE_AXIS", "monte_carlo_chunked",
+    "resolve_mesh", "sharded_monte_carlo", "TuningCache", "apply_tuned",
+    "autotune", "shape_key", "tuning_enabled", "iter_stream_chunks",
     "stream_chunks_from_trace", "stream_policy", "INVARIANTS",
     "CheckpointRollbackWarning", "InvariantViolation", "RetryPolicy",
     "Supervisor", "SupervisorError", "SupervisorTimeout",

@@ -23,9 +23,10 @@ the JAX package's PRNG keys.  Entry points run on the card unless
 ``chunk=`` / ``checkpoint_dir=`` / ``resume=`` / ``stop_after_chunks=``
 run a crash-safe chunked sweep on the scan engine
 (``core.engine.chunked``), and ``audit=True`` holds the result to the
-runtime invariants (``core.engine.supervisor.audit_result``).  The JAX
-package's mesh sharding is not ported yet: ``mesh=`` / ``devices=`` raise
-``NotImplementedError`` naming the ROADMAP item.
+runtime invariants (``core.engine.supervisor.audit_result``).  ``mesh=`` /
+``devices=`` split the ensemble over devices (``core.engine.sharding``),
+bit-identical to the unsharded run.  An unset ``work_steps`` is filled
+from the tuning cache (``core.engine.tuning``).
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ from .bfjs import (ENGINES, monte_carlo_bfjs_workload, run_bfjs_trace,
 from .bfjs_mr import (monte_carlo_bfjs_mr_workload, run_bfjs_mr_trace,
                       run_bfjs_mr_workload)
 from .chunked import run_chunked
-from .sharding import monte_carlo_chunked
+from .sharding import (monte_carlo_chunked, resolve_mesh,
+                       sharded_monte_carlo)
 from .streams import PolicyResult, SchedStreams
 from .supervisor import audit_result
+from .tuning import apply_tuned
 from .vqs import monte_carlo_vqs_workload, run_vqs_trace, run_vqs_workload
 from .vqs_bf import (monte_carlo_vqs_bf_workload, run_vqs_bf_trace,
                      run_vqs_bf_workload)
@@ -83,13 +86,6 @@ def _check_engine(engine: str, policy: str) -> None:
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{', '.join(ENGINES)}")
-
-
-def _not_ported(mesh=None, devices=None) -> None:
-    if mesh is not None or devices is not None:
-        raise NotImplementedError(
-            "mesh=/devices= (ensemble sharding over several cards) is not "
-            "ported yet (ROADMAP queue 1 item 9)")
 
 
 def _chunked_only(engine: str, chunk: int | None) -> None:
@@ -144,9 +140,11 @@ def run_policy(workload: Workload, seed: int = 0, *, policy: str = "bfjs",
 
     ``seed`` seeds the stream generator; ``config`` passes through to the
     policy runner (``L``, ``K``, ``Qcap``, ``A_max``, ``horizon``,
-    ``work_steps``, ``device``, and ``J`` for the VQS policies, ...)."""
+    ``work_steps``, ``device``, and ``J`` for the VQS policies, ...); an
+    unset ``work_steps`` comes from the tuning cache."""
     _check_engine(engine, policy)
     _require_workload("run_policy", workload)
+    apply_tuned(policy, engine, config, workload.num_resources)
     return get_policy(policy).run(workload, seed, engine=engine, **config)
 
 
@@ -176,9 +174,17 @@ def run_policy_streams(streams: SchedStreams, *, policy: str = "bfjs",
     result (``core.engine.supervisor.audit_result`` — job conservation,
     capacity bounds, fault accounting) and raises a typed
     ``InvariantViolation`` naming the failed counter; it needs explicit
-    ``L=``/``K=`` in the config."""
+    ``L=``/``K=`` in the config.
+
+    Ensemble-batched streams (a leading G axis) may add ``mesh=`` /
+    ``devices=`` to the chunked path, splitting each chunk's members over
+    devices (``core.engine.sharding``); without ``chunk=`` they raise."""
     _check_engine(engine, policy)
-    _not_ported(mesh=mesh, devices=devices)
+    mesh = resolve_mesh(mesh, devices)
+    n_res = 1 if streams.sizes.ndim == streams.durs.ndim \
+        else int(streams.sizes.shape[-1])
+    apply_tuned(policy, engine, config, n_res,
+                backend=(streams.n.device if mesh is None else mesh[0]).type)
     audit_cfg = dict(config)
 
     def _audited(res: PolicyResult) -> PolicyResult:
@@ -191,7 +197,12 @@ def run_policy_streams(streams: SchedStreams, *, policy: str = "bfjs",
         return _audited(run_chunked(
             streams, policy=policy, chunk=chunk,
             checkpoint_dir=checkpoint_dir, resume=resume,
-            stop_after_chunks=stop_after_chunks, **config))
+            stop_after_chunks=stop_after_chunks, mesh=mesh, **config))
+    if mesh is not None:
+        raise ValueError(
+            "mesh=/devices= on run_policy_streams needs the chunked path "
+            "(chunk=); for straight sharded Monte-Carlo use "
+            "monte_carlo_policy(..., mesh=)")
     return _audited(get_policy(policy).run_streams(streams, engine=engine,
                                                    **config))
 
@@ -206,22 +217,34 @@ def monte_carlo_policy(workload: Workload, seeds=None, *,
                        **config) -> PolicyResult:
     """One simulated cluster per integer seed, batched on a leading G axis;
     "cuda" runs the ensemble as the kernel's grid of thread blocks.
+
+    ``mesh=`` (a device sequence) or ``devices=`` (an int, the first N
+    cards, or a device sequence, repeats allowed) splits the members over
+    devices, bit-identical to the unsharded run, one G/D shard per entry
+    (``core.engine.sharding``; ``engine="reference"`` ignores the mesh).
     ``chunk=``/``checkpoint_dir=``/``resume=`` run the sweep crash-safe in
-    T-chunks on the scan engine (``sharding.monte_carlo_chunked``);
-    checkpoints name no device."""
+    T-chunks on the scan engine (``sharding.monte_carlo_chunked``),
+    composing with the mesh; checkpoints name no device count, so a sweep
+    may resume on another.  An unset ``work_steps`` comes from the tuning
+    cache."""
     _check_engine(engine, policy)
     _require_workload("monte_carlo_policy", workload)
     if seeds is None:
         raise TypeError("monte_carlo_policy needs seeds= (one integer seed "
                         "per ensemble member)")
-    _not_ported(mesh=mesh, devices=devices)
+    mesh = resolve_mesh(mesh, devices)
+    apply_tuned(policy, engine, config, workload.num_resources,
+                backend=None if mesh is None else mesh[0].type)
     if chunk is not None or checkpoint_dir is not None or resume:
         _chunked_only(engine, chunk)
         return monte_carlo_chunked(workload, seeds, policy=policy,
-                                   chunk=chunk,
+                                   chunk=chunk, mesh=mesh,
                                    checkpoint_dir=checkpoint_dir,
                                    resume=resume,
                                    stop_after_chunks=stop_after_chunks,
                                    **config)
+    if mesh is not None:
+        return sharded_monte_carlo(workload, seeds, policy=policy,
+                                   mesh=mesh, engine=engine, **config)
     return get_policy(policy).monte_carlo(workload, seeds, engine=engine,
                                           **config)

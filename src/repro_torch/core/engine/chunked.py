@@ -22,7 +22,11 @@ Only the scan engine chunks (``api.run_policy_streams`` refuses the
 others): the reference oracles keep host-side state, and the CUDA kernels
 keep a member's state in shared memory for one launch.  The port's scan
 engines batch over a leading ensemble axis G natively, so ensemble
-streams chunk with no extra mapping.
+streams chunk with no extra mapping.  With ``mesh=`` (a device tuple,
+``core.engine.sharding``) each chunk's streams and carry are split into
+contiguous member shards, run on their devices, and gathered back onto the
+streams' device before the checkpoint, so a sweep checkpointed on D shards
+resumes bit-exactly on D'.
 
 Per-chunk ``departed`` restarts at zero (it is an output, not carry); the
 chunk loop re-offsets each chunk by the previous cumulative total.  The
@@ -38,6 +42,7 @@ from typing import Any, Callable
 import torch
 
 from ...checkpoint import ckpt
+from .sharding import _check_divides, gather, run_shards, split
 from .streams import PolicyResult, SchedStreams
 
 
@@ -171,11 +176,26 @@ def _load_step(checkpoint_dir: str, step: int, policy: str, device
     return state, partial
 
 
+def _sharded(runner: Callable, mesh, home) -> Callable:
+    """``runner`` with each chunk's streams and carry split over ``mesh``
+    and the chunk's result and carry gathered back onto ``home``."""
+
+    def run(streams_chunk, state, config):
+        shards = split(streams_chunk, mesh)
+        states = [None] * len(mesh) if state is None else split(state, mesh)
+        parts = run_shards(lambda item, dev: runner(*item, config), mesh,
+                           list(zip(shards, states)))
+        return (gather([res for res, _ in parts], home),
+                gather([st for _, st in parts], home))
+
+    return run
+
+
 def run_chunked(streams: SchedStreams, *, policy: str = "bfjs",
                 chunk: int, checkpoint_dir: str | None = None,
                 resume: bool = False,
                 stop_after_chunks: int | None = None,
-                **config) -> PolicyResult:
+                mesh=None, **config) -> PolicyResult:
     """Run a scan-engine sweep in crash-safe chunks (see module docstring),
     on the streams' device.
 
@@ -183,7 +203,8 @@ def run_chunked(streams: SchedStreams, *, policy: str = "bfjs",
     been EXECUTED this call (checkpoints included) — the hook crash tests
     use to stop at an arbitrary boundary; the partial result is returned.
     Streams with a leading ensemble axis (``n.ndim == 2``) run every
-    member in each chunk's one batched call.
+    member in each chunk's one batched call; ``mesh=`` (a device tuple from
+    ``sharding.resolve_mesh``) splits that call into one per shard.
     """
     if policy not in _STATEFUL:
         raise ValueError(
@@ -198,6 +219,12 @@ def run_chunked(streams: SchedStreams, *, policy: str = "bfjs",
     for key in ("device", "strict", "window"):
         config.pop(key, None)
     ensemble = streams.n.ndim == 2
+    if mesh is not None:
+        if not ensemble:
+            raise ValueError("mesh= needs ensemble-batched streams (a "
+                             "leading G axis on every plane); single-run "
+                             "streams have nothing to shard")
+        _check_divides(int(streams.n.shape[0]), mesh)
     if policy == "bfjs-mr":
         from .bfjs_mr import _lift_sizes, _norm_capacity
         streams = _lift_sizes(streams)
@@ -241,6 +268,8 @@ def run_chunked(streams: SchedStreams, *, policy: str = "bfjs",
             start = latest
 
     runner = _STATEFUL[policy]
+    if mesh is not None:
+        runner = _sharded(runner, mesh, streams.n.device)
     executed = 0
     for i in range(start, len(bounds)):
         if stop_after_chunks is not None and executed >= stop_after_chunks:

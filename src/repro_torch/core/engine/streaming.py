@@ -72,6 +72,7 @@ from .chunked import (_STATEFUL, _append, _load_step, _payload, _save_step,
 from .streams import PolicyResult, SchedStreams
 from .supervisor import (Supervisor, SupervisorError, SupervisorTimeout,
                          make_auditor)
+from .tuning import apply_tuned
 
 #: The engines' dtypes for each stream plane (n, sizes, durs, up).
 _PLANE_DTYPES = (torch.int32, torch.float32, torch.int32, torch.bool)
@@ -416,6 +417,7 @@ def stream_policy(chunks: Iterable, *, policy: str = "bfjs",
         if not isinstance(cap, tuple):
             config["capacity"] = _norm_capacity(cap, max(n_res, 1))
     config.setdefault("A_max", lanes)
+    apply_tuned(policy, "scan", config, max(n_res, 1), backend=device.type)
     config.pop("window", None)
 
     meta = {

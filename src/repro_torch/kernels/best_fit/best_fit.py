@@ -57,5 +57,5 @@ def best_fit_cuda(residuals: torch.Tensor, sizes: torch.Tensor):
                                   G, L, N, assign.data_ptr(), out.data_ptr(),
                                   stream)
     build.check(lib, err, "best_fit kernel launch")
-    launches.count += 1
+    launches.add()
     return assign, out

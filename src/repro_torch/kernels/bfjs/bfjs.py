@@ -76,7 +76,7 @@ def bfjs_cuda(n: torch.Tensor, sizes: torch.Tensor, durs: torch.Tensor, *,
                 Qcap, A_max, work_steps, qlen.data_ptr(), occ.data_ptr(),
                 ndep.data_ptr(), dropped.data_ptr(), trunc.data_ptr(), stream)
         build.check(lib, err, "bfjs kernel launch")
-        launches.count += 1
+        launches.add()
     z = torch.zeros_like(dropped)
     return PolicyResult(qlen, occ, torch.cumsum(ndep, 1, dtype=torch.int32),
                         dropped, trunc, z, z, z)

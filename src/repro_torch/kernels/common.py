@@ -8,6 +8,7 @@ kernel for CUDA tensors and runs the plain version for CPU tensors only.
 """
 from __future__ import annotations
 
+import threading
 import warnings
 
 #: f32 infeasibility sentinel used by the float kernels (~f32 max).
@@ -30,13 +31,20 @@ class GracefulDegradationWarning(UserWarning):
 
 class LaunchCounter:
     """Number of kernel launches a wrapper made; ``reset()`` before a run,
-    read ``count`` after it."""
+    read ``count`` after it.  ``add()`` takes a lock: shards on distinct
+    cards launch from threads of their own (``core.engine.sharding``)."""
 
     def __init__(self) -> None:
         self.count = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
 
     def reset(self) -> None:
-        self.count = 0
+        with self._lock:
+            self.count = 0
 
 
 def cuda_precheck(kernel: str, *, nbytes: int, fault_plane: bool = False,

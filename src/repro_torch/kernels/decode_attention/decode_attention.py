@@ -104,5 +104,5 @@ def decode_attention_cuda(q, k, v, pos, *, window: int = 0) -> torch.Tensor:
             out.data_ptr(), B, H, KV, C, hd, int(window), float(hd**-0.5),
             int(q.dtype == torch.bfloat16), stream)
     build.check(lib, err, "decode_attention kernel launch")
-    launches.count += 1
+    launches.add()
     return out

@@ -148,5 +148,5 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         else _cuda_core
     with torch.cuda.device(q.device):
         out = run(lib, q, k, v, causal, window)
-    launches.count += 1
+    launches.add()
     return out

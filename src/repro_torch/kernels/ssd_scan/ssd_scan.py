@@ -158,7 +158,7 @@ def chunk_states_cuda(xdt, Bm, a):
             int(Bm.dtype == torch.bfloat16), st,
             torch.cuda.current_stream(xdt.device).cuda_stream)
     build.check(lib, err, "ssd_scan chunk_states launch")
-    launches.count += 1
+    launches.add()
     return states, totals
 
 
@@ -181,7 +181,7 @@ def state_pass_cuda(states, totals):
             states.data_ptr(), tot.data_ptr(), B * H, nc, hd * N,
             torch.cuda.current_stream(states.device).cuda_stream)
     build.check(lib, err, "ssd_scan state_pass launch")
-    launches.count += 1
+    launches.add()
     return states
 
 
@@ -216,7 +216,7 @@ def chunk_scan_cuda(xdt, Bm, Cm, a, starts, out=None):
             int(Bm.dtype == torch.bfloat16), st,
             torch.cuda.current_stream(xdt.device).cuda_stream)
     build.check(lib, err, "ssd_scan chunk_scan launch")
-    launches.count += 1
+    launches.add()
     return out
 
 

@@ -145,5 +145,5 @@ def vqs_cuda(n: torch.Tensor, sizes: torch.Tensor, durs: torch.Tensor, *,
     res = launch("vqs", n, sizes, durs, J=J, L=L, K=K, Qcap=Qcap,
                  A_max=A_max, work_steps=work_steps, drain=drain)
     if n.shape[0] > 0:
-        launches.count += 1
+        launches.add()
     return res

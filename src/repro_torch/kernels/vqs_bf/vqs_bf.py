@@ -35,5 +35,5 @@ def vqs_bf_cuda(n: torch.Tensor, sizes: torch.Tensor, durs: torch.Tensor,
     res = launch("vqs_bf", n, sizes, durs, J=J, L=L, K=K, Qcap=Qcap,
                  A_max=A_max, work_steps=work_steps, drain=0)
     if n.shape[0] > 0:
-        launches.count += 1
+        launches.add()
     return res

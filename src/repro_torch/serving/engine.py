@@ -26,14 +26,14 @@ import numpy as np
 import torch
 
 from ..cluster.admission import AdmissionController, PendingJob
+from ..core.engine import (Workload, apply_tuned, monte_carlo_policy,
+                           resolve_mesh)
 from ..core.engine.supervisor import InvariantViolation
 from ..core.quantize import RES
 from ..device import resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig
-
-#: ROADMAP item that ports the device-resident admission controller.
-LIVE_ADMISSION_TODO = "ROADMAP queue 1 item 10 (serving/live.py)"
+from .live import LiveAdmission
 
 
 @dataclass
@@ -113,21 +113,88 @@ class Replica:
         return finished
 
 
+def estimate_capacity(num_replicas: int, lam: float,
+                      mean_service_slots: float, size_sampler=None, *,
+                      ensembles: int = 8, horizon: int = 2_000,
+                      policy: str = "bfjs", engine: str = "scan",
+                      workload=None, seed: int = 0, K: int = 16,
+                      Qcap: int = 512, A_max: int = 8,
+                      mesh=None, devices=None, device=None,
+                      **policy_config) -> dict:
+    """Monte-Carlo what-if sizing for a serving fleet.
+
+    Simulates admission under ``policy`` ("bfjs" — the controller this
+    engine runs — or any registered policy, e.g. "vqs", or "bfjs-mr" for
+    vector requests) on ``num_replicas`` replicas under Poisson(``lam``)
+    request arrivals whose KV-cache fractions come from
+    ``size_sampler(generator, n, device)`` (default U[0.05, 0.5]) and whose
+    decode lengths are geometric with mean ``mean_service_slots``, with the
+    ``engine=`` ("scan" | "cuda" | "reference") the policy runs on, on
+    ``device`` (default: the card).  Pass ``workload=`` to size an explicit
+    :class:`~repro_torch.core.engine.Workload` instead of the loose knobs,
+    which are then ignored.  Extra keyword arguments (``J=`` for VQS) pass
+    through to the policy runner.  Returns tail-queue and drop statistics
+    that answer "how many replicas does this traffic need?" before any
+    model is loaded.
+
+    Member g of the ensemble is seeded with word g of
+    ``numpy.random.SeedSequence(seed).generate_state(ensembles)``.
+    ``mesh=``/``devices=`` split the ensemble over devices (bit-identical
+    results, ``core.engine.sharding``); the tuning cache fills an unset
+    ``work_steps`` (``core.engine.tuning``), and the returned dict reports
+    ``devices``, ``tuned`` and ``cache_hit`` so a sizing run names its
+    launch configuration.
+    """
+    if workload is None:
+        if size_sampler is None:
+            def size_sampler(gen, n, device):
+                return torch.rand(n, generator=gen, device=device) \
+                    * 0.45 + 0.05
+        workload = Workload(lam=lam, mu=1.0 / mean_service_slots,
+                            sampler=size_sampler)
+
+    mesh = resolve_mesh(mesh, devices)
+    policy_config.update(L=num_replicas, K=K, Qcap=Qcap, A_max=A_max,
+                         horizon=horizon, device=device)
+    tuning_meta = apply_tuned(policy, engine, policy_config,
+                              workload.num_resources,
+                              backend=None if mesh is None else mesh[0].type)
+    seeds = np.random.SeedSequence(seed).generate_state(ensembles).tolist()
+    res = monte_carlo_policy(workload, seeds, policy=policy, engine=engine,
+                             mesh=mesh, **policy_config)
+    tail = res.queue_len[:, -max(horizon // 4, 1):].cpu().numpy()
+    return {
+        "replicas": num_replicas,
+        "policy": policy,
+        "engine": engine,
+        "devices": 1 if mesh is None else len(mesh),
+        "tuned": tuning_meta["tuned"],
+        "cache_hit": tuning_meta["cache_hit"],
+        "mean_tail_queue": float(tail.mean()),
+        "p95_tail_queue": float(np.percentile(tail, 95)),
+        "mean_occupancy": float(res.occupancy.double().mean()),
+        "dropped": int(res.dropped.sum()),
+        "truncated": int(res.truncated.sum()),
+        "slots_simulated": ensembles * horizon,
+    }
+
+
 class ServingEngine:
     """L replicas + paper-scheduler admission; host-level request queue.
 
-    ``admission="host"`` (the default, and the only one ported) runs the
-    Python :class:`AdmissionController`.  ``device=None`` means the card.
+    ``admission="host"`` (default) runs the Python
+    :class:`AdmissionController`; ``admission="live"`` swaps in the
+    device-resident controller (``serving/live.py``) on the engine's
+    device — identical placements, but each tick's release + BF-S refill
+    decisions run as ONE kernel launch instead of a host loop, and the
+    host only reads back the placement vector.  ``device=None`` means the
+    card.
     """
 
     def __init__(self, cfg: ModelConfig, params, num_replicas: int = 2,
                  b_slots: int = 4, c_max: int = 128, policy: str = "bf",
                  admission: str = "host", audit: bool = False, device=None):
-        if admission == "live":
-            raise NotImplementedError(
-                "admission=\"live\" (the device-resident controller) is not "
-                f"ported yet: {LIVE_ADMISSION_TODO}")
-        if admission != "host":
+        if admission not in ("host", "live"):
             raise ValueError(f"unknown admission {admission!r}; expected "
                              '"host" or "live"')
         self.cfg = cfg
@@ -138,7 +205,13 @@ class ServingEngine:
         device = resolve_device(device)
         self.replicas = [Replica(cfg, params, b_slots, c_max, device)
                          for _ in range(num_replicas)]
-        self.admission = AdmissionController(num_replicas, policy=policy)
+        if admission == "host":
+            self.admission = AdmissionController(num_replicas, policy=policy)
+        else:
+            self.admission = LiveAdmission(
+                num_replicas, tick_width=num_replicas * b_slots,
+                device=device)
+        self._live = admission == "live"
         self.c_max = c_max
         self._by_rid: dict[int, Request] = {}
         self._job_size: dict[int, int] = {}
@@ -177,17 +250,29 @@ class ServingEngine:
         self.stats["admitted"] += 1
 
     def step(self) -> list[Request]:
-        """One engine tick: decode every replica, release + BF-S refill."""
+        """One engine tick: decode every replica, release + BF-S refill.
+
+        With ``admission="live"`` the whole tick's releases and refills
+        are one launch (``LiveAdmission.tick``); the order is equivalent to
+        the host path's — a refill reads only its own replica's residual,
+        and refills run in ascending replica order either way."""
         finished_all = []
+        events = []
         for idx, rep in enumerate(self.replicas):
             finished = rep.step()
             for r in finished:
                 self.completed.append(r)
-                self.admission.release(idx, self._job_size[r.rid])
+                if self._live:
+                    events.append((idx, self._job_size[r.rid]))
+                else:
+                    self.admission.release(idx, self._job_size[r.rid])
             finished_all.extend(finished)
-            if finished:
+            if finished and not self._live:
                 for rid, ridx in self.admission.refill(idx):
                     self._start(rid, ridx)
+        if self._live and events:
+            for rid, ridx in self.admission.tick(events):
+                self._start(rid, ridx)
         self.stats["queue_len"].append(self.admission.queue_len())
         self.stats["active"].append(
             sum(len(rep.active()) for rep in self.replicas))
@@ -203,7 +288,9 @@ class ServingEngine:
           of queued / active-in-a-slot / completed;
         * slot-map consistency — each resident request's recorded
           ``(replica, slot)`` matches where it actually sits;
-        * admission residuals — nonnegative and within replica capacity.
+        * admission residuals — nonnegative and within replica capacity
+          (``admission="live"`` also reads its device-side invalid-release
+          counter through ``queue_len``).
 
         Raises :class:`InvariantViolation` (a ``ValueError``) naming the
         failed counter.

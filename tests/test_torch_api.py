@@ -119,15 +119,26 @@ def test_registry_and_unported_options():
     with pytest.raises(ValueError, match="unknown engine"):
         run_policy(wl, policy="bfjs-mr", engine="pallas", device="cpu",
                    **CFG)
-    # only the ensemble sharding over several cards is left unported
+    # the ensemble split over devices validates as JAX's mesh knobs do
+    # (tests/test_torch_sharding.py holds the split itself)
     st = streams_from_numpy(np.zeros(4), np.zeros((4, 6)),
                             np.ones((4, 30)), device="cpu")
-    for kw in (dict(mesh=object()), dict(devices=2),
-               dict(devices=2, chunk=10)):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    for kw, err in ((dict(mesh=["cpu"], devices=["cpu"]), "not both"),
+                    (dict(mesh=[["cpu"]]), "1-D mesh"),
+                    (dict(devices=torch.cuda.device_count() + 1),
+                     "device list")):
+        with pytest.raises(ValueError, match=err):
             monte_carlo_policy(wl, seeds=[0], device="cpu", **kw, **CFG)
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match=err):
             run_policy_streams(st, L=4, K=6, Qcap=8, A_max=6, **kw)
+    with pytest.raises(ValueError, match="divide evenly"):
+        monte_carlo_policy(wl, seeds=[0], device="cpu", devices=["cpu"] * 2,
+                           **CFG)
+    with pytest.raises(ValueError, match="chunk"):
+        run_policy_streams(st, L=4, K=6, Qcap=8, A_max=6, devices=["cpu"])
+    with pytest.raises(ValueError, match="ensemble-batched"):
+        run_policy_streams(st, L=4, K=6, Qcap=8, A_max=6, devices=["cpu"],
+                           chunk=10)
     # chunked sweeps and the audit run (tests/test_torch_chunked.py and
     # tests/test_torch_supervisor.py hold them to JAX)
     chunked = monte_carlo_policy(wl, seeds=[0, 1], device="cpu", chunk=30,
@@ -188,7 +199,11 @@ def test_import_leaves_jax_and_repro_unloaded():
         "'core.best_fit', 'core.fifo', 'core.vqs', 'core.vqs_bf', "
         "'core.stability', 'core.maxweight', 'core.engine.supervisor', "
         "'core.trace', 'checkpoint.ckpt', 'core.engine.chunked', "
-        "'core.engine.streaming', 'core.engine.sharding'):\n"
+        "'core.engine.streaming', 'core.engine.sharding', "
+        "'core.engine.tuning', 'serving.live', 'cluster.gang', "
+        "'kernels.live_admission.live_admission', "
+        "'kernels.live_admission.ops', 'kernels.live_admission.ref', "
+        "'kernels.live_admission.sequences'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1143,3 +1143,111 @@ def test_mamba_model_on_card_kernel_equals_plain(cuda, dtype):
     scale = float(rec.abs().max())
     assert float((full - plain).abs().max()) <= tol_plain * scale
     assert float((full - rec).abs().max()) <= tol_rec * scale
+
+
+# ---------------------------------------------------------------------------
+# live admission: the kernel against its plain version at its edges
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("L,Qcap,width,seed", [
+    (1, 1, 1, 0), (1, 4, 3, 1), (2, 3, 8, 2), (32, 64, 16, 3),
+    (33, 257, 32, 4), (257, 512, 64, 5), (1000, 512, 48, 6),
+    (1000, 8192, 300, 7), (5, 2000, 700, 8)])
+def test_live_admission_kernel_equals_plain(cuda, L, Qcap, width, seed):
+    """Random admit / tick / release / refill / push_front sequences: every
+    out buffer and, after the run, every state plane and counter equal to
+    the plain version; one launch an op.  The shapes cover one replica,
+    one replica a warp lane and beyond, a queue of one lane, queues past
+    the block's 256 threads, and state past 48 KB of shared memory."""
+    from repro_torch.kernels.live_admission import live_admission as lk
+    from repro_torch.kernels.live_admission.sequences import (random_ops,
+                                                              replay, stage)
+    from repro_torch.serving.live import init_state
+    rng = np.random.default_rng(seed)
+    ops = random_ops(rng, L, 160, width)
+    plain = init_state(L, Qcap, "cpu")
+    card = init_state(L, Qcap, cuda)
+    want = replay(plain, stage(ops, "cpu"))
+    staged = stage(ops, cuda)
+    before = lk.launches.count
+    got = replay(card, staged)
+    assert lk.launches.count == before + len(ops)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), (i, ops[i][0])
+    for f in plain._fields:
+        assert torch.equal(getattr(card, f).cpu(), getattr(plain, f)), f
+    # the queue overflows at every shape but the wide fleets
+    assert int(plain.invalid) > 0 and (int(plain.dropped) > 0 or L >= 257)
+
+
+def test_live_admission_facade_on_card_equals_cpu(cuda):
+    """The LiveAdmission facade on the card against the same facade on the
+    CPU through a randomized tick sequence; one launch a call."""
+    from repro_torch.cluster.admission import PendingJob
+    from repro_torch.kernels.live_admission import live_admission as lk
+    from repro_torch.serving.live import LiveAdmission
+    rng = np.random.default_rng(0)
+    L = 7
+    on_card = LiveAdmission(L, Qcap=64, tick_width=16, device=cuda)
+    on_cpu = LiveAdmission(L, Qcap=64, tick_width=16, device="cpu")
+    before = lk.launches.count
+    active, size_of, rid = {}, {}, 0
+    for t in range(150):
+        jobs = [PendingJob(rid=rid + i, frac=float(rng.uniform(0.05, 0.95)))
+                for i in range(int(rng.integers(0, 4)))]
+        rid += len(jobs)
+        size_of.update({j.rid: j.size for j in jobs})
+        placed = on_card.admit(list(jobs))
+        assert placed == on_cpu.admit(list(jobs)), t
+        active.update(placed)
+        events = [(active.pop(r), size_of[r]) for r in list(active)
+                  if rng.uniform() < 0.3]
+        placed = on_card.tick(events)
+        assert placed == on_cpu.tick(events), t
+        active.update(placed)
+        assert on_card.queue_len() == on_cpu.queue_len(), t
+    np.testing.assert_array_equal(on_card.residual, on_cpu.residual)
+    assert lk.launches.count - before == on_card.calls > 0
+
+
+def test_live_admission_kernel_refuses_state_past_shared_memory(cuda):
+    from repro_torch.serving.live import init_state, refill_step
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        refill_step(init_state(2, 40_000, cuda), 0)
+
+
+# ---------------------------------------------------------------------------
+# the ensemble split over a repeated card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("policy", ["bfjs", "vqs", "vqs-bf", "bfjs-mr"])
+def test_sharded_cuda_run_on_a_repeated_card_equals_unsharded(cuda, policy):
+    """monte_carlo_policy(engine="cuda", devices=[card] * k) equals the
+    unsharded launch on every field, one kernel launch a shard."""
+    counters = {"bfjs": bfjs_kernel.launches, "vqs": vqs_kernel.launches,
+                "vqs-bf": vqs_bf_kernel.launches,
+                "bfjs-mr": bfjs_mr_kernel.launches}
+    R = 2 if policy == "bfjs-mr" else 1
+
+    def sampler(gen, n, device):
+        shape = (n,) if R == 1 else (n, R)
+        return torch.rand(shape, generator=gen, device=device) * 0.8 + 0.1
+
+    wl = Workload(lam=8.0, mu=0.01, sampler=sampler, num_resources=R)
+    cfg = dict(L=100, K=16, Qcap=512, A_max=24, horizon=300,
+               work_steps=64)
+    if policy in ("vqs", "vqs-bf"):
+        cfg["J"] = 4
+    seeds = range(8)
+    ref = monte_carlo_policy(wl, seeds, policy=policy, engine="cuda",
+                             strict=True, device=cuda, **cfg)
+    for k in (2, 4):
+        counters[policy].reset()
+        res = monte_carlo_policy(wl, seeds, policy=policy, engine="cuda",
+                                 strict=True, devices=[cuda] * k, **cfg)
+        torch.cuda.synchronize()
+        assert counters[policy].count == k
+        for f, a, b in zip(ref._fields, res, ref):
+            assert (a is None) == (b is None), f
+            if a is not None:
+                assert torch.equal(a, b), (k, f)

@@ -191,8 +191,10 @@ def test_queue_drains_in_arrival_waves(smoke):
 
 def test_engine_options_and_invariants(smoke):
     _, tc, _, tp = smoke
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServingEngine(tc, tp, admission="live", device="cpu")
+    live = ServingEngine(tc, tp, num_replicas=3, b_slots=2, admission="live",
+                         device="cpu")
+    assert type(live.admission).__name__ == "LiveAdmission"
+    assert live.admission.tick_width == 6 and live.admission.Qcap == 512
     with pytest.raises(ValueError, match="unknown admission"):
         ServingEngine(tc, tp, admission="remote", device="cpu")
     assert Cluster is ServingEngine
