@@ -51,7 +51,7 @@ port's paths through the entry points a user calls:
     decode step, the flash_attention kernel on prefill.  Teacher-forced
     gates hold the model's decode with the kernels against decode with
     their plain versions, and prefill against the last decode step, in
-    bf16 (before the path, on the weights and prompts of three seeds) and
+    bf16 (before the path, on the weights and prompts of two seeds) and
     in float32 at the same width and depth on the prompt's first 64 tokens
     (after it).  A profile of one full-width decode step then splits its
     device time by kernel and gives the card's busy share;
@@ -63,7 +63,7 @@ port's paths through the entry points a user calls:
     with the kernel against the token-by-token ``decode_step`` recurrence
     over every position of a 512-token prompt (two chunks) and against
     the plain chunked form, in float32 (the gate that decides) and in
-    bf16, on three seeds each; then the same engine and 8-request traffic
+    bf16, on two seeds each; then the same engine and 8-request traffic
     as the serve path, and one ``prefill`` at B = 4, S = 8192 (cut from
     32 x 32768): ssd_scan's three stage kernels on every prefill layer,
     no kernel on decode.  Profiles of the prefill (by kernel, then by
@@ -96,7 +96,26 @@ port's paths through the entry points a user calls:
     llama3-8b behind ``ServingEngine(admission="live")`` and ``"host"``
     (one replica of 3 slots, 12 requests that fill the queue and meet full
     slots), equal placements, tokens and stats, one admission launch a
-    controller call.
+    controller call;
+  * MLA, MoE and the sliding-window ring (phase 14): deepseek-v2-lite-16b
+    at full width (27 layers, d_model 2048, MLA with kv_lora_rank 512 and
+    q/k 192 and v 128 wide, 64 routed experts top-6 and 2 shared, vocab
+    102400, bf16, random weights from ``--seed``; 16.2 B parameters):
+    teacher-forced gates over 128 tokens of decode and prefill with the
+    kernels against their plain versions, in bf16 (the kernel run on the
+    plain run's expert picks, ``PinnedRouting``) and in float32 at 4
+    layers (which decides), then ``timed_engine`` with 10 short requests
+    and one 2048-token ``prefill``: decode_attention on every tick (H =
+    KV = 16), flash_attention on the prefill, nothing else.
+    h2o-danube-3-4b at full width (24 layers, GQA 32/8, hd 120, window
+    4096): every layer's ring (C = 4096) filled with random bf16 values
+    from the seed, one ``decode_step`` of rows at positions 4095, 4096,
+    6000 and 12287 (before, at and past the wrap) with the kernels and
+    plain, in float32 and in bf16, each float32 plain layer held to the
+    linear 12288-slot cache through the window mask; a serve with c_max
+    8192 and one 8192-token prefill.  Then both attention kernels at these
+    shapes against their plain versions, with device, bound and SDPA
+    times.
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; it must launch its own kernel and no other.  The
@@ -113,8 +132,12 @@ against the plain version, kernel, plain, bound and library times; the attention
 kernels' and SDPA's times are device times of a CUDA graph of calls, since
 an eager decode call is bound by the host; best_fit's row adds ``ms_g1``,
 the single-problem ``ops.best_fit`` at the same law; the bfjs and vqs rows
-add ``launches_phase_12``, their launches on phase 12's paths); the last
-line is
+add ``launches_phase_12``, their launches on phase 12's paths; the
+decode_attention and flash_attention rows add phase 14's shapes under
+suffixed keys, ``ms_mla``, ``bound_ms_mla``, ``library_ms_mla`` and the
+rest for MLA's widths, ``_ring`` for the wrapped ring decode, ``_swa``
+for the windowed 8192-token prefill, and ``launches_phase_14a`` /
+``launches_phase_14b``); the last line is
 ``{"ok": true, "device": ...}``.  Any failed phase raises, and the script
 exits non-zero without a result — also when no CUDA device is present.
 """
@@ -162,8 +185,10 @@ PLAIN_SLOTS = 250
 BENCH_SLOTS = 1000
 
 #: Seeds whose weights and 256-token prompt the bf16 teacher-forced gate
-#: runs on: ``--seed`` and the ones after it.
-BF16_GATE_SEEDS = 3
+#: runs on: ``--seed`` and the one after it.  Cut from 3 when phase 14
+#: took the script past 950 s on a slow host (its limits rest on seeds
+#: 0-5: ``GATE_TOL``).
+BF16_GATE_SEEDS = 2
 
 #: Limits of the teacher-forced gates at llama3-8b's full width and depth,
 #: as max |diff| / max |logit|.  float32 decides whether the kernels are
@@ -455,7 +480,8 @@ def bridge_phase(dev, seed: int, counters, reset_counters, L: int = 1000,
 #: runs to 70,000 slots and compares packing and queue order there (43-53
 #: s on the card's hosts); vqs-bf's oracle, 1.3x as costly, stops at
 #: 40,000 and bfjs-mr's, which never queues on this trace, at 30,000.
-#: Together they fit the phase's 150 s on a slow host.
+#: Together they fit the phase's 150 s on a slow host.  (20,000 slots of
+#: vqs-bf took 45.3 s, 40,000 37.3-40.4 s: most of its cost is early.)
 TRACE_H = {"vqs": 70_000, "vqs-bf": 40_000, "bfjs-mr": 30_000}
 
 
@@ -627,6 +653,46 @@ def trace_phase(dev, seed: int, counters, reset_counters, card: str,
 
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
+#: Limits of the bf16 attention checks: the largest over the queries of
+#: max |diff| / max |out| within the query's output, the kernel's output
+#: against the plain version's float32 output (unrounded, so the check
+#: sees the kernel's error and not two roundings to bf16; ``rel_errs``).
+#: ``attn_check``'s absolute limit cannot stand alone in bf16: an output
+#: that averages 10^3 keys is about the limit's size.  Readings of
+#: tools/attention_margins.py on every shape and window below, seeds 0-2
+#: (PERF.md, section 6): sound decode 0.0030-0.0037, flash
+#: 0.0039-0.0061; with the softmax scale off by 0.5%, decode 0.0113 and
+#: more, flash 0.0203 and more (off by 1%: 0.0199 and 0.0370 and more).
+BF16_REL_TOL = {"decode_attention": 7e-3, "flash_attention": 1e-2}
+
+#: h2o-danube-3-4b's ring decode rows: before, at and past the ring's wrap
+#: (C = window = 4096), up to 3 C.
+RING_POSITIONS = (4095, 4096, 6000, 12287)
+
+#: The bf16 shapes each attention kernel is held to its plain version and
+#: timed at.  decode_attention: (B, H, KV, C, hd, hd_v, positions,
+#: windows); flash_attention: (B, H, KV, S, hd, hd_v, windows), causal.
+#: "serve" is llama3-8b's serve path (phase 8), "mla" deepseek-v2-lite-16b's
+#: MLA (q and k 192 wide, v 128, KV = H), "ring" h2o-danube-3-4b's wrapped
+#: ring (the model decodes it with window 0, models/attention.py) and
+#: "swa" its windowed prefill (phase 14c).
+DECODE_SHAPES = {
+    "serve": (4, 32, 8, 2048, 128, 128, (0, 511, 1337, 2047), (0, 512)),
+    "mla": (4, 16, 16, 2048, 192, 128, (0, 700, 1500, 2047), (0,)),
+    "ring": (4, 32, 8, 4096, 120, 120, RING_POSITIONS, (0,))}
+FLASH_SHAPES = {
+    "serve": (1, 32, 8, 2048, 128, 128, (0, 512)),
+    "mla": (1, 16, 16, 2048, 192, 128, (0,)),
+    "swa": (1, 32, 8, 8192, 120, 120, (4096,))}
+
+#: Calls a time is the mean of: (kernel and SDPA in a CUDA graph, the plain
+#: version on CUDA events).
+ATTN_REPS = {"decode_attention": (50, 5), "flash_attention": (10, 3)}
+
+#: The sub-keys each shape gives a kernel's row.
+ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
 
 def attn_check(what: str, got, ref) -> float:
     """Hold an attention kernel's output to its plain version within the
@@ -641,76 +707,191 @@ def attn_check(what: str, got, ref) -> float:
     return err
 
 
+def rel_errs(got, ref) -> tuple[float, float]:
+    """Against ``ref``, in float64: the largest over the queries of max
+    |diff| / max |ref| within the query's output (the checks' reading),
+    and max |diff| / max |ref| over the whole tensor.  The first sees every
+    query alike; the second, only those of few keys, whose outputs are
+    largest."""
+    a, b = (x.double().reshape(-1, x.shape[-1]) for x in (got, ref))
+    d = (a - b).abs()
+    per_query = d.amax(-1) / b.abs().amax(-1).clamp_min(1e-30)
+    return float(per_query.max()), float(d.max()) / float(b.abs().max())
+
+
 def decode_valid_rows(pos, C: int, window: int) -> list[int]:
     """Valid cache rows per batch row for the decode mask."""
     return [min(p + 1, C, window) if window else min(p + 1, C) for p in pos]
 
 
-def decode_phase(dev, seed: int) -> dict:
-    """decode_attention kernel against its plain version at the serve
-    path's shape (window 0 and 512) and the f32 sweep of
-    tests/test_kernels.py; timings at the serve shape, window 0: the
-    kernel and SDPA in device time (``device_ms``), the kernel's eager call
-    on the host clock beside it."""
+def attention_inputs(dev, seed: int, kernel: str, tag: str) -> tuple:
+    """bf16 inputs of ``kernel`` at shape ``tag``, standard normal from
+    numpy's generator on (seed, kernel, shape): decode_attention's q (B, H,
+    hd), k (B, KV, C, hd), v (B, KV, C, hd_v) and (B,) int32 positions;
+    flash_attention's q, k, v as the model's (B, S, ., .) views transposed
+    to (B, ., S, .)."""
+    import torch
+    shapes = DECODE_SHAPES if kernel == "decode_attention" else FLASH_SHAPES
+    rng = np.random.default_rng([seed, int(kernel == "flash_attention"),
+                                 list(shapes).index(tag)])
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=dev, dtype=torch.bfloat16)
+    if kernel == "decode_attention":
+        B, H, KV, C, hd, hd_v, pos, _ = shapes[tag]
+        return (normal(B, H, hd), normal(B, KV, C, hd),
+                normal(B, KV, C, hd_v),
+                torch.tensor(pos, dtype=torch.int32, device=dev))
+    B, H, KV, S, hd, hd_v, _ = shapes[tag]
+    return tuple(normal(B, S, n, d).transpose(1, 2)
+                 for n, d in ((H, hd), (KV, hd), (KV, hd_v)))
+
+
+def attention_calls(kernel: str, inputs, window: int) -> tuple:
+    """Calls of no argument on ``inputs``: the kernel, its plain version,
+    the plain version on float32 copies (unrounded), and one SDPA call of
+    the same function (GQA through ``enable_gqa``; a boolean mask where
+    ``is_causal`` cannot say it) with its description."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    rng = np.random.default_rng(seed)
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    if kernel == "decode_attention":
+        q, k, v, p = inputs
+        c_pos = torch.arange(k.shape[2], device=q.device)
+        mask = c_pos[None] <= p[:, None].long()
+        if window:
+            mask &= c_pos[None] > p[:, None].long() - window
+        qs, mask = q[:, :, None], mask[:, None, None]
+        return (lambda: da.decode_attention_cuda(q, k, v, p, window=window),
+                lambda: decode_attention_ref(q, k, v, p, window=window),
+                lambda: decode_attention_ref(q.float(), k.float(), v.float(),
+                                             p, window=window),
+                lambda: F.scaled_dot_product_attention(
+                    qs, k, v, attn_mask=mask, enable_gqa=True),
+                "SDPA, boolean mask")
+    q, k, v = inputs
+    if window:
+        i = torch.arange(q.shape[2], device=q.device)
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+        lib = (lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+    else:
+        lib = (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    return (lambda: fa.flash_attention_cuda(q, k, v, causal=True,
+                                            window=window),
+            lambda: attention_ref(q, k, v, causal=True, window=window),
+            lambda: attention_ref(q.float(), k.float(), v.float(),
+                                  causal=True, window=window),
+            lib, "SDPA, boolean window mask" if window else "SDPA is_causal")
 
-    def normal(shape, dtype):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(device=dev, dtype=dtype)
 
-    B, H, KV, C, hd = 4, 32, 8, 2048, 128
-    pos = (0, 511, 1337, 2047)
-    q = normal((B, H, hd), torch.bfloat16)
-    k = normal((B, KV, C, hd), torch.bfloat16)
-    v = normal((B, KV, C, hd), torch.bfloat16)
-    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+def attention_work(kernel: str, inputs, window: int) -> tuple[int, int]:
+    """The bytes a call must move (each input read once, each output
+    written once; decode reads only the valid cache rows) and its products'
+    operations over the (query, key) pairs the mask keeps, 2 (hd + hd_v) a
+    pair and query head."""
+    q, k, v = inputs[:3]
+    B, H = q.shape[:2]
+    KV, n = k.shape[1:3]
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    if kernel == "decode_attention":
+        rows = sum(decode_valid_rows(inputs[3].tolist(), n, window))
+        nbytes = rows * KV * (hd + hd_v) + B * H * (hd + hd_v)
+        pairs = rows
+    else:
+        nbytes = B * n * (H + KV) * (hd + hd_v)
+        pairs = B * sum(min(i + 1, window) if window else i + 1
+                        for i in range(n))
+    return q.element_size() * nbytes, 2 * (hd + hd_v) * H * pairs
+
+
+def attention_row(kernel: str, tag: str, inputs, window: int) -> dict:
+    """Hold ``kernel`` to its plain version on bf16 ``inputs`` (within
+    ``ATTN_TOL`` of the plain bf16 output and ``BF16_REL_TOL`` of its
+    float32 output), then time the kernel and SDPA in device time
+    (``device_ms``), the kernel's eager call and the plain version on CUDA
+    events, and take the bound; prints one line and returns the row's
+    ``ROW_KEYS``."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    kern, plain, plain32, lib, lib_what = attention_calls(kernel, inputs,
+                                                          window)
+    what = f"{kernel} {tag} window={window}"
+    got = kern()
+    torch.cuda.synchronize()
+    err = attn_check(what, got, plain())
+    ref = plain32()
+    rel, rel_all = rel_errs(got, ref)
+    del got, ref
+    if not rel <= BF16_REL_TOL[kernel]:
+        raise AssertionError(f"{what}: max |diff| / max |out| of a query "
+                             f"{rel:.4g} against the float32 plain output, "
+                             f"over {BF16_REL_TOL[kernel]}")
+    reps, plain_reps = ATTN_REPS[kernel]
+    ms = device_ms(kern, reps)
+    call_ms = time_ms(kern, reps)
+    plain_ms = time_ms(plain, plain_reps)
+    lib_ms = device_ms(lib, reps)
+    nbytes, ops = attention_work(kernel, inputs, window)
+    b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
+    q, k, v = inputs[:3]
+    B, H = q.shape[:2]
+    KV, n = k.shape[1:3]
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    if kernel == "decode_attention":
+        shape = (f"B={B} H={H} KV={KV} C={n} hd={hd} hd_v={hd_v} pos="
+                 f"{tuple(inputs[3].tolist())} (clusters of "
+                 f"{da.cluster_size(B, H, KV, n)})")
+    else:
+        shape = (f"B={B} H={H} KV={KV} S={n} hd={hd} hd_v={hd_v} causal "
+                 f"({fa.instance(q.dtype, hd)} instance)")
+    print(f"{what} {shape} bf16: max abs err {err:.3g} vs plain (tol "
+          f"{ATTN_TOL['bfloat16']:g}); against the float32 plain output max "
+          f"|diff| / max |out| {rel:.4g} a query (limit "
+          f"{BF16_REL_TOL[kernel]:g}), {rel_all:.4g} over the whole output; "
+          f"kernel {ms:.4f} ms device "
+          f"({call_ms:.4f} ms an eager call, {ops / ms / 1e9:.1f} TFLOP/s), "
+          f"plain {plain_ms:.4f} ms, library ({lib_what}) {lib_ms:.4f} ms "
+          f"device, bound {b_ms:.4f} ms ({b_by}, {nbytes:.4g} B, {ops:.4g} "
+          f"operations at {BF16_TC_OPS_PER_S:.4g}/s)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def shape_row(kernel: str, tag: str, inputs) -> dict:
+    """``attention_row`` at each window of shape ``tag``: the first
+    window's row, with the largest abs error over the windows."""
+    shapes = DECODE_SHAPES if kernel == "decode_attention" else FLASH_SHAPES
+    rows = [attention_row(kernel, tag, inputs, w) for w in shapes[tag][-1]]
+    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
+def decode_phase(dev, seed: int) -> dict:
+    """decode_attention kernel against its plain version at the serve
+    path's shape (``DECODE_SHAPES["serve"]``, window 0 and 512) and the f32
+    sweep of tests/test_kernels.py; the row's times at window 0."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    B, H, KV, C = DECODE_SHAPES["serve"][:4]
     cs = da.cluster_size(B, H, KV, C)
     units = B * KV * -(-(H // KV) // 4)
     print(f"decode_attention instance: clusters of {cs} blocks, one per "
           f"(row, kv head, group of 4 query heads): {units * cs} blocks, the "
           "split over the cache merged in the same launch")
-    row = {}
-    for window in (0, 512):
-        got = da.decode_attention_cuda(q, k, v, p, window=window)
-        torch.cuda.synchronize()
-        ref = decode_attention_ref(q, k, v, p, window=window)
-        err = attn_check(f"decode_attention window={window}", got, ref)
-        ms = device_ms(lambda: da.decode_attention_cuda(q, k, v, p,
-                                                        window=window), 50)
-        call_ms = time_ms(lambda: da.decode_attention_cuda(q, k, v, p,
-                                                           window=window), 50)
-        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, p,
-                                                        window=window), 5)
-        rows_valid = decode_valid_rows(pos, C, window)
-        nbytes = 2 * (sum(rows_valid) * KV * hd * 2 + 2 * B * H * hd)
-        ops = 4 * hd * H * sum(rows_valid)
-        b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
-        c_pos = torch.arange(C, device=dev)
-        mask = c_pos[None] <= p[:, None].long()
-        if window:
-            mask &= c_pos[None] > p[:, None].long() - window
-        qs, mask = q[:, :, None], mask[:, None, None]
-        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=mask, enable_gqa=True), 50)
-        print(f"decode_attention B={B} H={H} KV={KV} C={C} hd={hd} bf16 "
-              f"pos={pos} window={window}: max abs err {err:.3g} vs plain "
-              f"(tol 2e-2); kernel {ms:.4f} ms device ({call_ms:.4f} ms an "
-              f"eager call), plain {plain_ms:.4f} ms, library (SDPA, boolean "
-              f"mask) {lib_ms:.4f} ms device, bound {b_ms:.4f} ms ({b_by}, "
-              f"{nbytes} B)")
-        if window == 0:
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        else:
-            row["max_abs_err"] = max(row["max_abs_err"], err)
+    row = shape_row("decode_attention", "serve", attention_inputs(
+        dev, seed, "decode_attention", "serve"))
+    rng = np.random.default_rng(seed)
     for C32, pos32, w32 in ((256, 0, 0), (256, 255, 0), (512, 300, 128)):
-        q32 = normal((2, 8, 64), torch.float32)
-        k32 = normal((2, 2, C32, 64), torch.float32)
-        v32 = normal((2, 2, C32, 64), torch.float32)
+        q32, k32, v32 = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(dev) for s in ((2, 8, 64), (2, 2, C32, 64),
+                                           (2, 2, C32, 64)))
         got = da.decode_attention_cuda(q32, k32, v32, pos32, window=w32)
         torch.cuda.synchronize()
         err = attn_check(f"decode_attention f32 C={C32}", got,
@@ -721,98 +902,32 @@ def decode_phase(dev, seed: int) -> dict:
     return row
 
 
-#: Limit of the bf16 flash check at the serve shape: max |diff| / max |out|
-#: against the plain version's float32 output.  Sound kernels read
-#: 0.0025-0.0027 (bf16 rounding of P and of the output); a 1% error in the
-#: softmax scale reads 0.0087, which the 2e-2 absolute check passes
-#: (PERF.md, section 6).
-FLASH_BF16_REL_TOL = 5e-3
-
-
-def rel_err(got, ref) -> float:
-    """max |got - ref| / max |ref|, in float64."""
-    a, b = got.double(), ref.double()
-    return float((a - b).abs().max()) / float(b.abs().max())
-
-
 def flash_phase(dev, seed: int) -> dict:
     """flash_attention kernel against its plain version at llama3-8b's
-    prefill shape (causal, window 0 and 512) and the f32 sweep of
-    tests/test_kernels.py.  The bf16 inputs are the model's: (B, S, H, hd)
-    views transposed to (B, H, S, hd).  Timings at window 0: the kernel
-    and SDPA in device time (``device_ms``), the kernel's eager call on
-    the host clock beside it."""
+    prefill shape (``FLASH_SHAPES["serve"]``, causal, window 0 and 512),
+    the output's strides, and the f32 sweep of tests/test_kernels.py; the
+    row's times at window 0."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    inputs = attention_inputs(dev, seed, "flash_attention", "serve")
+    q = inputs[0]
+    print(f"flash_attention instance: {fa.instance(q.dtype, q.shape[-1])} "
+          f"(bf16, hd={q.shape[-1]}), strided (B, S, H, hd) views in and "
+          f"out")
+    got = fa.flash_attention_cuda(*inputs, causal=True)
+    torch.cuda.synchronize()
+    if got.stride() != q.stride():
+        raise AssertionError("flash_attention: the output does not keep "
+                             "q's strides")
+    del got
+    row = shape_row("flash_attention", "serve", inputs)
     rng = np.random.default_rng(seed + 1)
-
-    def normal(shape, dtype):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(device=dev, dtype=dtype)
-
-    B, H, KV, S, hd = 1, 32, 8, 2048, 128
-    q = normal((B, S, H, hd), torch.bfloat16).transpose(1, 2)
-    k = normal((B, S, KV, hd), torch.bfloat16).transpose(1, 2)
-    v = normal((B, S, KV, hd), torch.bfloat16).transpose(1, 2)
-    print(f"flash_attention instance: {fa.instance(q.dtype, hd)} (bf16, "
-          f"hd={hd}), strided (B, S, H, hd) views in and out")
-    row = {}
-    for window in (0, 512):
-        got = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
-        torch.cuda.synchronize()
-        if got.stride() != q.stride():
-            raise AssertionError("flash_attention: the output does not "
-                                 "keep q's strides")
-        ref = attention_ref(q, k, v, causal=True, window=window)
-        err = attn_check(f"flash_attention window={window}", got, ref)
-        # the plain version's float32 output, unrounded: the check sees the
-        # kernel's error, not two roundings to bf16
-        ref = attention_ref(q.float(), k.float(), v.float(), causal=True,
-                            window=window)
-        rel = rel_err(got, ref)
-        diff = (got.double() - ref.double())
-        rms = float(diff.pow(2).mean().sqrt()) / float(
-            ref.double().pow(2).mean().sqrt())
-        del ref, diff
-        if not rel <= FLASH_BF16_REL_TOL:
-            raise AssertionError(f"flash_attention window={window}: max "
-                                 f"|diff| / max |out| {rel:.4g} over "
-                                 f"{FLASH_BF16_REL_TOL}")
-        ms = device_ms(lambda: fa.flash_attention_cuda(
-            q, k, v, causal=True, window=window), 10)
-        call_ms = time_ms(lambda: fa.flash_attention_cuda(
-            q, k, v, causal=True, window=window), 10)
-        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True,
-                                                 window=window), 3)
-        pairs = sum(min(i + 1, window) if window else i + 1
-                    for i in range(S))
-        nbytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
-        ops = 4 * hd * pairs * B * H
-        b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
-        line = (f"flash_attention B={B} H={H} KV={KV} S={S} hd={hd} bf16 "
-                f"causal window={window}: max abs err {err:.3g} vs plain "
-                f"(tol 2e-2); against the float32 plain output max |diff| / "
-                f"max |out| {rel:.4g} (limit "
-                f"{FLASH_BF16_REL_TOL:g}), rms |diff| / rms |out| {rms:.4g}; "
-                f"kernel {ms:.4f} ms device ({call_ms:.4f} ms an eager call, "
-                f"{ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by}, {ops:.4g} operations at "
-                f"{BF16_TC_OPS_PER_S:.4g}/s)")
-        if window == 0:
-            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 10)
-            line += f", library (SDPA is_causal) {lib_ms:.4f} ms device"
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        else:
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-        print(line)
     for S32, hd32, w32 in ((128, 64, 0), (256, 64, 0), (256, 128, 64)):
-        q32 = normal((2, 4, S32, hd32), torch.float32)
-        k32 = normal((2, 2, S32, hd32), torch.float32)
-        v32 = normal((2, 2, S32, hd32), torch.float32)
+        q32, k32, v32 = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(dev) for s in ((2, 4, S32, hd32),
+                                           (2, 2, S32, hd32),
+                                           (2, 2, S32, hd32)))
         got = fa.flash_attention_cuda(q32, k32, v32, causal=True, window=w32)
         torch.cuda.synchronize()
         err = attn_check(f"flash_attention f32 S={S32}", got,
@@ -1019,14 +1134,16 @@ def device_split(tag: str, prof, wall_us: float, reps: int,
               f"{us / busy:6.1%}  {name[:90]}")
 
 
-def timed_engine(cfg, params, dev):
-    """The serve paths' engine, ``ServingEngine(num_replicas=2, b_slots=4,
-    c_max=2048, policy="bf", audit=True)``, with each replica's decode
-    timed on the host clock (it ends in the greedy tokens' copy to the
-    host); returns the engine and the list the times go to."""
+def timed_engine(cfg, params, dev, num_replicas: int = 2,
+                 c_max: int = 2048):
+    """The serve paths' engine, ``ServingEngine(num_replicas, b_slots=4,
+    c_max, policy="bf", audit=True)``, with each replica's decode timed on
+    the host clock (it ends in the greedy tokens' copy to the host);
+    returns the engine and the list the times go to."""
     from repro_torch.serving.engine import ServingEngine
-    engine = ServingEngine(cfg, params, num_replicas=2, b_slots=4,
-                           c_max=2048, policy="bf", audit=True, device=dev)
+    engine = ServingEngine(cfg, params, num_replicas=num_replicas,
+                           b_slots=4, c_max=c_max, policy="bf", audit=True,
+                           device=dev)
     decode_s = []
     for rep in engine.replicas:
         def timed(toks, positions, _decode=rep.decode):
@@ -1049,10 +1166,10 @@ def serve_requests(rng, vocab: int) -> list:
             for i, (n, m) in enumerate(zip(lengths, max_new))]
 
 
-def check_served(tag: str, cfg, engine, done) -> None:
-    """Every request completed with its tokens, in the vocabulary, and the
-    admission queue filled."""
-    if len(done) != 8 or any(len(r.out) != r.max_new for r in done):
+def check_served(tag: str, cfg, engine, done, n: int = 8) -> None:
+    """Every one of the ``n`` requests completed with its tokens, in the
+    vocabulary, and the admission queue filled."""
+    if len(done) != n or any(len(r.out) != r.max_new for r in done):
         raise AssertionError(f"{tag}: not every request completed with its "
                              "max_new tokens")
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out):
@@ -1172,7 +1289,9 @@ SSD_TOL = {"float32": (1e-4, 1e-2), "bfloat16": (5e-2, 1e-2)}
 MAMBA_GATE_TOL = {
     "float32": {"recurrence": 1e-4, "prefill": 1e-4, "plain": 1e-4},
     "bfloat16": {"recurrence": 7e-2, "prefill": 7e-2, "plain": 3.5e-2}}
-MAMBA_GATE_SEEDS = 3
+#: Seeds each dtype's Mamba2 gate runs on: ``--seed`` and the one after
+#: it, cut from 3 as ``BF16_GATE_SEEDS`` was.
+MAMBA_GATE_SEEDS = 2
 
 
 def ssd_work(B, H, G, nc, Lc, hd, N, bc_size=4) -> tuple[float, float,
@@ -2292,6 +2411,448 @@ def live_serve(cfg, params, dev, seed: int, counters,
     return {"launches": live[4], "seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: MLA, MoE and the sliding-window ring at full width
+# ---------------------------------------------------------------------------
+#: The deepseek-v2-lite-16b gates' prompt length (teacher-forced decode and
+#: prefill, kernels against plain versions).
+MOE_GATE_TOKENS = 128
+
+#: Layers of the float32 deepseek gate: the full width at 27 layers is
+#: 65 GB in float32; 4 layers keep every layer kind (MLA, MoE) at it.
+MOE_GATE_F32_LAYERS = 4
+
+#: Limit of the bf16 deepseek gate (kernels against plain versions, the
+#: kernel run on the plain run's expert picks), as max |diff| / max
+#: |logit|.  The float32 gate at ``GATE_TOL`` decides.  In bf16, 27
+#: layers of MLA and MoE (whose expert stacks draw at fan-in E, as in
+#: JAX, so their outputs are large) put sound pinned readings over bf16's
+#: 3e-2: decode 0.0353 / 0.0407 / 0.0466 and prefill 0.0365 / 0.0290 /
+#: 0.0304 on seeds 0-2; unpinned, a 1-ulp difference tips a router's near
+#: tie and the runs part (1.13).  Both kernels' softmax scale off by 1%
+#: reads 0.0736 and more, off by 0.5% 0.0563 / 0.0635 (seed 0,
+#: tools/attention_margins.py).  6e-2 sits between the sound and the 1%
+#: readings, 1.29x and 1.23x from them (PERF.md, section 6).
+MOE_BF16_TOL = 6e-2
+
+#: h2o-danube-3-4b's serve cache (twice its window) and prefill length.
+DANUBE_C_MAX = 8192
+
+
+def param_count(tree) -> int:
+    """Elements in a parameter dictionary (nested dicts and lists)."""
+    if isinstance(tree, dict):
+        return sum(param_count(x) for x in tree.values())
+    if isinstance(tree, list):
+        return sum(param_count(x) for x in tree)
+    return tree.numel()
+
+
+def cast_params(tree, dtype):
+    """A copy of a parameter dictionary with every tensor in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_params(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_params(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+class PinnedRouting:
+    """Inside the context, ``moe.route`` records each call's expert picks
+    and, once ``replay()`` is called, hands the recorded picks back in the
+    same order, with the weights renormalised from the caller's own
+    probabilities.  The bf16 MoE gate compares the kernels with the plain
+    versions this way: a 1-ulp difference in an attention output tips a
+    router's near tie in bf16, and the two runs would then route tokens
+    to other experts."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.picks, self.at = moe, moe.route, [], None
+
+    def __enter__(self):
+        self.moe.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def replay(self) -> None:
+        self.at = 0
+
+    def done(self) -> bool:
+        return self.at == len(self.picks)
+
+    def _route(self, params, xf, cfg):
+        probs, top_w, top_e = self.route(params, xf, cfg)
+        if self.at is None:
+            self.picks.append(top_e)
+            return probs, top_w, top_e
+        top_e = self.picks[self.at]
+        self.at += 1
+        top_w = probs.gather(-1, top_e)
+        return probs, top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9), \
+            top_e
+
+
+def moe_gate(cfg, params, prompt, pin: bool = False) -> dict[str, float]:
+    """The teacher-forced gate of an MoE model, as max |diff| / max |logit|:
+    ``decode_step`` with the kernels against the plain versions over every
+    token of ``prompt`` (1, P) (``kernels``), and ``prefill`` likewise
+    (``prefill``).  Prefill is not held to the last decode step: its
+    capacity is taken over all P tokens and may drop some (JAX's does the
+    same), while decode routes each row alone and never drops.  ``pin``
+    runs the kernels on the plain run's expert picks
+    (:class:`PinnedRouting`)."""
+    import contextlib
+
+    import torch
+    from repro_torch.models import model as M
+    P = prompt.shape[1]
+    logits, last = {}, {}
+    with PinnedRouting() if pin else contextlib.nullcontext() as pinned:
+        for use in (False, True):
+            if pin and use:
+                pinned.replay()
+            caches = M.init_cache(cfg, 1, P, device=prompt.device)
+            steps = []
+            for i in range(P):
+                out, caches = M.decode_step(params, cfg, prompt[:, i:i + 1],
+                                            i, caches, use_kernels=use)
+                steps.append(out[:, 0])
+            logits[use] = torch.cat(steps)
+            last[use] = M.prefill(params, cfg, tokens=prompt,
+                                  use_kernels=use)
+            del caches
+        if pin and not pinned.done():
+            raise AssertionError("pinned routing: the runs routed a "
+                                 "different number of times")
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+    return dict(kernels=rel(logits[True], logits[False]),
+                prefill=rel(last[True], last[False]))
+
+
+def check_gate(tag: str, r: dict, tol: float) -> None:
+    print(f"{tag}: decode with kernels vs plain versions max |diff| / max "
+          f"|logit| = {r['kernels']:.4g}; prefill with kernels vs plain "
+          f"{r['prefill']:.4g} (gate {tol:g} each)")
+    if not r["kernels"] <= tol or not r["prefill"] <= tol:
+        raise AssertionError(f"{tag}: teacher-forced gate failed")
+
+
+def short_requests(rng, vocab: int, n: int, prompt: tuple, new: tuple
+                   ) -> list:
+    """``n`` requests, prompts U[prompt] tokens, U[new] new tokens."""
+    from repro_torch.serving.engine import Request
+    lengths = rng.integers(prompt[0], prompt[1] + 1, n)
+    max_new = rng.integers(new[0], new[1] + 1, n)
+    return [Request(rid=i, prompt=rng.integers(1, vocab, int(m)).astype(
+        np.int32), max_new=int(k)) for i, (m, k) in enumerate(
+        zip(lengths, max_new))]
+
+
+def serve_and_count(tag: str, cfg, engine, decode_s, reqs, counters,
+                    reset_counters, layers: int) -> dict:
+    """Run ``reqs`` through ``engine`` with the counters set to 0 just
+    before; requires one decode launch per attention layer and replica
+    tick, no other launch; prints the tick time and token rates."""
+    import torch
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.submit(reqs)
+    done = engine.run(max_steps=20_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.count for n, c in counters.items()}
+    calls = len(decode_s)
+    check_served(tag, cfg, engine, done, len(reqs))
+    if launches["decode_attention"] != layers * calls or any(
+            c for n, c in launches.items() if n != "decode_attention"):
+        raise AssertionError(f"{tag}: launches {launches}, expected "
+                             f"{layers} decode_attention a replica tick "
+                             f"({calls}) and nothing else")
+    generated = sum(len(r.out) for r in done)
+    processed = sum(r.pos for r in done)
+    print(f"{tag}: {len(reqs)} requests, max queue "
+          f"{max(engine.stats['queue_len'])}, {len(engine.stats['queue_len'])}"
+          f" ticks, {calls} replica decode steps in {wall:.2f} s; generated "
+          f"{generated} tokens ({generated / wall:.1f} tokens/s), processed "
+          f"{processed} ({processed / wall:.1f} tokens/s); decode step "
+          f"{np.mean(decode_s) * 1e3:.2f} ms mean per replica tick (host "
+          f"clock, synchronised); decode_attention launches "
+          f"{launches['decode_attention']}")
+    return launches
+
+
+def deepseek_path(dev, seed: int, counters, reset_counters) -> dict:
+    """14a: deepseek-v2-lite-16b at full width (27 layers, MLA, 64 routed
+    experts top-6 and 2 shared, bf16, weights from ``seed``): the bf16
+    teacher-forced gate over ``MOE_GATE_TOKENS`` tokens, a serve through
+    ``timed_engine`` with traffic cut to the phase's budget, one
+    2048-token prefill and a profile of one decode step, then the float32
+    gate at ``MOE_GATE_F32_LAYERS`` layers.  Returns the path's
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("deepseek-v2-lite-16b")
+    torch.cuda.reset_peak_memory_stats()
+    init_ms, params = wall_ms(lambda: M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev))
+    print(f"deepseek: {cfg.name} {cfg.num_layers} layers d_model "
+          f"{cfg.d_model}, MLA r={cfg.kv_lora_rank} nope/rope/v "
+          f"{cfg.qk_nope_dim}/{cfg.qk_rope_dim}/{cfg.v_head_dim}, "
+          f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} + "
+          f"{cfg.num_shared_experts} shared of d_ff {cfg.moe_d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}: {param_count(params) / 1e9:.3f} B"
+          f" parameters drawn on the card in {init_ms / 1e3:.1f} s")
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (1, MOE_GATE_TOKENS)).astype(np.int64)).to(dev)
+    check_gate(f"deepseek: teacher-forced {MOE_GATE_TOKENS}-token prompt, "
+               f"bf16 seed {seed}, {cfg.num_layers} layers, expert picks "
+               f"pinned to the plain run's",
+               moe_gate(cfg, params, prompt, pin=True), MOE_BF16_TOL)
+
+    engine, decode_s = timed_engine(cfg, params, dev)
+    reqs = short_requests(rng, cfg.vocab_size, 10, (48, 96), (8, 24))
+    long_prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (1, 2048)).astype(np.int64)).to(dev)
+    launches = serve_and_count("deepseek serve", cfg, engine, decode_s, reqs,
+                               counters, reset_counters, cfg.num_layers)
+    reset_counters()
+    out = M.prefill(params, cfg, tokens=long_prompt)
+    torch.cuda.synchronize()
+    flash = counters["flash_attention"].count
+    if flash != cfg.num_layers or any(
+            c.count for n, c in counters.items() if n != "flash_attention"):
+        raise AssertionError(f"deepseek prefill: flash launches {flash}, "
+                             f"expected {cfg.num_layers} and nothing else")
+    if out.shape != (1, cfg.vocab_size) or not bool(torch.isfinite(out)
+                                                   .all()):
+        raise AssertionError("deepseek: prefill logits bad shape or values")
+    launches["flash_attention"] = flash
+    prefill_ms = time_ms(lambda: M.prefill(params, cfg, tokens=long_prompt),
+                         3)
+    print(f"deepseek: prefill S=2048 {prefill_ms:.1f} ms (CUDA events, mean "
+          f"of 3), flash_attention launches {flash}; device memory peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del engine
+    profile_decode_step(cfg, params, dev, "deepseek")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.with_(dtype="float32", num_layers=MOE_GATE_F32_LAYERS)
+    params = M.init_params(cfg32, torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    check_gate(f"deepseek: teacher-forced {MOE_GATE_TOKENS}-token prompt, "
+               f"f32 seed {seed}, {cfg32.num_layers} layers at full width",
+               moe_gate(cfg32, params, prompt), GATE_TOL["float32"])
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ring_linear_check(calls, C: int, window: int, gen) -> float:
+    """Hold each recorded plain float32 ring decode (``(q, k, v, pos,
+    out)`` of every layer) to the linear computation: the same keys and
+    values laid out by stored position in ``max(pos) + 1`` slots (the
+    others filled with other values), through ``decode_attention_ref``
+    with the window, within 2e-5.  Returns the largest difference."""
+    import torch
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    worst = 0.0
+    for q, k, v, pos, out in calls:
+        B, KV, _, hd = k.shape
+        T = int(pos.max()) + 1
+        lin_k = torch.randn((B, KV, T, hd), generator=gen, device=k.device)
+        lin_v = torch.randn((B, KV, T, hd), generator=gen, device=k.device)
+        for b, p in enumerate(pos.tolist()):
+            t = torch.arange(max(p - C + 1, 0), p + 1, device=k.device)
+            lin_k[b, :, t] = k[b, :, t % C]
+            lin_v[b, :, t] = v[b, :, t % C]
+        lin = decode_attention_ref(q, lin_k, lin_v, pos, window=window)
+        worst = max(worst, attn_check("plain ring decode vs the linear "
+                                      "window (float32)", out, lin))
+        del lin_k, lin_v
+    return worst
+
+
+#: Limit of 14b's bf16 ring step, kernels against plain versions, as max
+#: |diff| / max |logit|.  The float32 step decides (sound 4.8e-6); in
+#: bf16, 24 layers over rings of random values put sound steps at 0.0315
+#: / 0.0321 / 0.0270 (seeds 0-2), over bf16's 3e-2.  The decode kernel's
+#: softmax scale off by 1% reads 0.0647 and more, off by 0.5% 0.0525, its
+#: window test on the wrapped ring (``window=4096``) 1.24 (seed 0,
+#: tools/attention_margins.py).  4.5e-2 sits between the sound and the
+#: 1% readings, 1.40x and 1.44x from them (PERF.md, section 6).
+RING_BF16_TOL = 4.5e-2
+
+
+def ring_step(cfg, params, src, tok, pos, counters, reset_counters,
+              record=None):
+    """One ``decode_step`` of the rows at ``pos`` over copies of the rings
+    ``src`` in ``cfg.dtype``, with the kernels and plain; returns
+    (max |diff| / max |logit|, the kernel launches).  ``record`` gets
+    the plain run's ``decode_attn`` calls as ``(q, k, v, pos, out)``."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import KVCache
+    dt = getattr(torch, cfg.dtype)
+    out = {}
+    plain = attn_mod.decode_attn
+
+    def recording(q, k, v, p, **kw):
+        o = plain(q, k, v, p, **kw)
+        record.append((q, k, v, p, o))
+        return o
+    for use in (True, False):
+        caches = [KVCache(c.k.to(dt), c.v.to(dt), c.length.clone())
+                  for c in src]
+        if use:
+            reset_counters()
+        elif record is not None:
+            attn_mod.decode_attn = recording
+        try:
+            out[use], _ = M.decode_step(params, cfg, tok, pos, caches,
+                                        use_kernels=use)
+        finally:
+            attn_mod.decode_attn = plain
+        torch.cuda.synchronize()
+        if use:
+            launches = counters["decode_attention"].count
+    rel = float((out[True] - out[False]).abs().max()) / float(
+        out[False].abs().max())
+    return rel, launches
+
+
+def danube_rings(dev, seed: int) -> tuple:
+    """h2o-danube-3-4b at full width from ``seed``: (cfg, the generator,
+    the weights, every layer's ring (C = 4096) for rows at
+    ``RING_POSITIONS`` filled with random values, a token a row, the
+    positions), the generator drawing weights, rings and tokens in
+    turn."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("h2o-danube-3-4b")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = M.init_params(cfg, gen, device=dev)
+    B = len(RING_POSITIONS)
+    rings = M.init_cache(cfg, B, DANUBE_C_MAX, device=dev)
+    for c in rings:
+        if c.k.shape[2] != cfg.sliding_window:
+            raise AssertionError(f"danube: ring of {c.k.shape[2]} slots, "
+                                 f"expected {cfg.sliding_window}")
+        for x in (c.k, c.v):
+            x.copy_(torch.randn(x.shape, generator=gen, device=dev))
+    pos = torch.tensor(RING_POSITIONS, dtype=torch.int32, device=dev)
+    tok = torch.randint(1, cfg.vocab_size, (B, 1), generator=gen,
+                        device=dev)
+    return cfg, gen, params, rings, tok, pos
+
+
+def danube_path(dev, seed: int, counters, reset_counters) -> dict:
+    """14b: h2o-danube-3-4b at full width (24 layers, GQA 32/8, hd 120,
+    window 4096, bf16): every layer's ring (C = 4096) filled with random
+    bf16 values, one ``decode_step`` of 4 rows at ``RING_POSITIONS`` with
+    the kernels and one plain, in float32 (within ``GATE_TOL``, each plain
+    layer held to the linear-cache computation) and in bf16 (within
+    ``RING_BF16_TOL``), on the same weights; a short serve with c_max =
+    8192, whose requests end near position 80, short of the wrap (the
+    engine's own writes cross it at smoke size, in
+    tests/test_torch_serving.py; a 4097-token prompt would add ~100 s of
+    ticks here); one prefill at S = 8192, where the window bites.  Returns
+    the path's launches."""
+    import torch
+    from repro_torch.models import model as M
+    cfg, gen, params, rings, tok, pos = danube_rings(dev, seed)
+    C, window = cfg.sliding_window, cfg.sliding_window
+    print(f"danube: {cfg.name} {cfg.num_layers} layers d_model "
+          f"{cfg.d_model} GQA {cfg.num_heads}/{cfg.num_kv_heads} hd "
+          f"{cfg.resolved_head_dim} window {window}, {cfg.dtype}: "
+          f"{param_count(params) / 1e9:.3f} B parameters")
+    B = len(RING_POSITIONS)
+    calls = []
+    cfg32 = cfg.with_(dtype="float32")
+    params32 = cast_params(params, torch.float32)
+    rel32, n32 = ring_step(cfg32, params32, rings, tok, pos, counters,
+                           reset_counters, record=calls)
+    worst = ring_linear_check(calls, C, window, gen)
+    del params32, calls
+    torch.cuda.empty_cache()
+    rel16, n16 = ring_step(cfg, params, rings, tok, pos, counters,
+                           reset_counters)
+    n_dec = n32 + n16
+    print(f"danube ring decode: B={B} at positions {RING_POSITIONS} (ring "
+          f"C={C}, window {window}, random bf16 rings): logits with kernels "
+          f"vs plain max |diff| / max |logit| {rel32:.4g} in float32 (gate "
+          f"{GATE_TOL['float32']:g}), {rel16:.4g} in bf16 (limit "
+          f"{RING_BF16_TOL:g}); each of {cfg.num_layers} float32 plain "
+          f"layers equals the linear {int(pos.max()) + 1}-slot cache "
+          f"through the window mask, max abs err {worst:.3g} (tol 2e-5); "
+          f"decode_attention launches {n32} + {n16}")
+    if n32 != cfg.num_layers or n16 != cfg.num_layers:
+        raise AssertionError(f"danube ring: {n32} and {n16} decode "
+                             f"launches, expected {cfg.num_layers} each")
+    if not rel32 <= GATE_TOL["float32"] or not rel16 <= RING_BF16_TOL:
+        raise AssertionError("danube ring decode: kernels vs plain over "
+                             "the gate")
+    del rings
+    torch.cuda.empty_cache()
+
+    engine, decode_s = timed_engine(cfg, params, dev, num_replicas=1,
+                                    c_max=DANUBE_C_MAX)
+    rng = np.random.default_rng(seed + 1)
+    launches = serve_and_count(
+        f"danube serve (c_max {DANUBE_C_MAX})", cfg, engine, decode_s,
+        short_requests(rng, cfg.vocab_size, 6, (32, 64), (8, 16)), counters,
+        reset_counters, cfg.num_layers)
+    launches["decode_attention"] += n_dec
+    del engine
+    long_prompt = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (1, DANUBE_C_MAX)).astype(np.int64)).to(dev)
+    reset_counters()
+    out = M.prefill(params, cfg, tokens=long_prompt)
+    torch.cuda.synchronize()
+    flash = counters["flash_attention"].count
+    if flash != cfg.num_layers or out.shape != (1, cfg.vocab_size) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"danube prefill: flash launches {flash} "
+                             f"(expected {cfg.num_layers}) or bad logits")
+    launches["flash_attention"] = flash
+    prefill_ms = time_ms(lambda: M.prefill(params, cfg, tokens=long_prompt),
+                         3)
+    print(f"danube: prefill S={DANUBE_C_MAX} (window {window}) "
+          f"{prefill_ms:.1f} ms "
+          f"(CUDA events, mean of 3), flash_attention launches {flash}; "
+          f"the attention alone against SDPA at the same mask: phase 14c")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def new_shapes_phase(dev, seed: int) -> tuple[dict, dict]:
+    """14c: decode and flash at this phase's shapes (``DECODE_SHAPES`` and
+    ``FLASH_SHAPES`` "mla", "ring" and "swa"), each through
+    ``attention_row``.  Returns the decode and flash rows' sub-keys,
+    suffixed ``_<shape>``."""
+    out = []
+    for kernel, tags in (("decode_attention", ("mla", "ring")),
+                         ("flash_attention", ("mla", "swa"))):
+        row = {}
+        for tag in tags:
+            r = shape_row(kernel, tag, attention_inputs(dev, seed, kernel,
+                                                        tag))
+            row.update({f"{key}_{tag}": r[key] for key in ROW_KEYS})
+        out.append(row)
+    return out[0], out[1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2797,6 +3358,22 @@ def main() -> int:
         launches=live["launches"])
     clock.done("13 fleet runtime")
     print(f"phase 13e serve (run inside phase 9): {live['seconds']:.1f} s")
+
+    # -- 14. MLA, MoE and ring decode at full width --------------------------
+    for name, n in deepseek_path(dev, args.seed, counters,
+                                 reset_counters).items():
+        if name in ("decode_attention", "flash_attention"):
+            rows[name]["launches_phase_14a"] = n
+    clock.done("14a deepseek-v2-lite-16b path")
+    for name, n in danube_path(dev, args.seed, counters,
+                               reset_counters).items():
+        if name in ("decode_attention", "flash_attention"):
+            rows[name]["launches_phase_14b"] = n
+    clock.done("14b h2o-danube-3-4b ring path")
+    dec, fl = new_shapes_phase(dev, args.seed)
+    rows["decode_attention"].update(dec)
+    rows["flash_attention"].update(fl)
+    clock.done("14c attention kernels at the new shapes")
 
     print(f"chip_smoke: all phases passed in {clock.total():.1f} s")
     order = ("bfjs", "vqs", "vqs_bf", "bfjs_mr", "best_fit",

@@ -1,5 +1,6 @@
-"""Carry streams, scan state, results, model parameters, KV caches and Mamba
-caches between the JAX package and the port as numpy arrays.
+"""Carry streams, scan state, results, model parameters and decode caches
+(KV, MLA and Mamba, in any mix) between the JAX package and the port as
+numpy arrays.
 
 The two packages draw different random numbers from the same seed, so a
 parity check generates its inputs once (with either package), hands them
@@ -19,6 +20,8 @@ from .models.attention import KVCache
 from .models.config import ModelConfig
 from .models.layers import cdtype
 from .models.mamba2 import FLOAT32_PARAMS, MambaCache
+from .models.mla import MLACache
+from .models.model import layer_descs
 
 _STATE_DTYPES = (torch.float32, torch.int32, torch.float32, torch.int32,
                  torch.int32, torch.int32, torch.int32, torch.int32,
@@ -128,80 +131,56 @@ def model_params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     return out
 
 
-def kv_caches_from_numpy(tree, cfg: ModelConfig, device=None
-                         ) -> list[KVCache]:
+def caches_from_numpy(tree, cfg: ModelConfig, device=None) -> list:
     """The port's per-layer caches from the JAX ``init_cache`` /
-    ``decode_step`` caches as numpy (or from :func:`kv_caches_to_numpy`):
-    ``{"p{p}": (k, v, length)}`` with k, v (periods, B, C, KV, hd) and
-    length (periods,).  k and v move to the kernels' (B, KV, C, hd) layout
-    in ``cfg.dtype``."""
+    ``decode_step`` caches as numpy (or from :func:`caches_to_numpy`):
+    ``{"p{p}": (a, b, length)}`` per period position, the leaves stacked
+    over periods, ``length`` (periods,).  By the layer's mixer: a
+    ``KVCache`` from k, v (periods, B, C, KV, hd), moved to the kernels'
+    (B, KV, C, hd) layout; an ``MLACache`` from c_kv and k_rope (periods,
+    B, C, .); a ``MambaCache`` from conv (periods, B, k-1, conv_dim) and
+    ssm (periods, B, nh, hd, N), ssm in float32.  Everything else in
+    ``cfg.dtype``."""
     device = resolve_device(device)
     dt = cdtype(cfg)
     period = cfg.period
     out = []
-    for l in range(cfg.num_layers):
-        k, v, length = tree[f"p{l % period}"]
+    for l, (mixer, _) in enumerate(layer_descs(cfg)):
+        a, b, length = tree[f"p{l % period}"]
         i = l // period
 
-        def move(x):
-            x = np.asarray(x, dtype=np.float32)[i].transpose(0, 2, 1, 3)
-            return torch.from_numpy(x.copy()).to(device=device, dtype=dt)
-        out.append(KVCache(move(k), move(v), torch.tensor(
-            int(np.asarray(length)[i]), dtype=torch.int32, device=device)))
-    return out
-
-
-def kv_caches_to_numpy(caches, cfg: ModelConfig) -> dict:
-    """The JAX cache layout as float32 numpy, from the port's caches:
-    ``{"p{p}": KVCache(k, v (periods, B, C, KV, hd), length (periods,))}``
-    (bfloat16 values are exact in float32)."""
-    period = cfg.period
-    out = {}
-    for p in range(period):
-        layers = caches[p::period]
-        k, v = (np.stack([getattr(c, name).detach().float().cpu().numpy()
-                          .transpose(0, 2, 1, 3) for c in layers])
-                for name in ("k", "v"))
-        out[f"p{p}"] = KVCache(k, v, np.array([int(c.length) for c in layers],
-                                              dtype=np.int32))
-    return out
-
-
-def mamba_caches_from_numpy(tree, cfg: ModelConfig, device=None
-                            ) -> list[MambaCache]:
-    """The port's per-layer Mamba caches from the JAX ``init_cache`` /
-    ``decode_step`` caches of an attention-free stack as numpy (or from
-    :func:`mamba_caches_to_numpy`): ``{"p{p}": (conv, ssm, length)}`` with
-    conv (periods, B, k-1, conv_dim), ssm (periods, B, nh, hd, N) and
-    length (periods,).  conv in ``cfg.dtype``, ssm in float32; the layout
-    is the JAX one."""
-    device = resolve_device(device)
-    period = cfg.period
-    out = []
-    for l in range(cfg.num_layers):
-        conv, ssm, length = tree[f"p{l % period}"]
-        i = l // period
-
-        def move(x, dtype):
+        def move(x, dtype=dt):
             x = np.asarray(x, dtype=np.float32)[i]
+            if mixer == "attn":
+                x = x.transpose(0, 2, 1, 3)
             return torch.from_numpy(x.copy()).to(device=device, dtype=dtype)
-        out.append(MambaCache(move(conv, cdtype(cfg)),
-                              move(ssm, torch.float32), torch.tensor(
-            int(np.asarray(length)[i]), dtype=torch.int32, device=device)))
+        n = torch.tensor(int(np.asarray(length)[i]), dtype=torch.int32,
+                         device=device)
+        if mixer == "attn":
+            out.append(KVCache(move(a), move(b), n))
+        elif mixer == "mla":
+            out.append(MLACache(move(a), move(b), n))
+        else:
+            out.append(MambaCache(move(a), move(b, torch.float32), n))
     return out
 
 
-def mamba_caches_to_numpy(caches, cfg: ModelConfig) -> dict:
-    """The JAX cache layout as float32 numpy, from the port's Mamba caches:
-    ``{"p{p}": MambaCache(conv, ssm (periods, B, ...), length (periods,))}``
-    (bfloat16 values are exact in float32)."""
+def caches_to_numpy(caches, cfg: ModelConfig) -> dict:
+    """The JAX cache layout as float32 numpy, from the port's caches:
+    ``{"p{p}": Cache(a, b (periods, B, ...), length (periods,))}`` with
+    each period position's cache type (bfloat16 values are exact in
+    float32)."""
     period = cfg.period
     out = {}
     for p in range(period):
         layers = caches[p::period]
-        conv, ssm = (np.stack([getattr(c, name).detach().float().cpu()
-                               .numpy() for c in layers])
-                     for name in ("conv", "ssm"))
-        out[f"p{p}"] = MambaCache(conv, ssm, np.array(
-            [int(c.length) for c in layers], dtype=np.int32))
+        kind = type(layers[0])
+
+        def stack(name):
+            x = np.stack([getattr(c, name).detach().float().cpu().numpy()
+                          for c in layers])
+            return x.transpose(0, 1, 3, 2, 4) if kind is KVCache else x
+        out[f"p{p}"] = kind(*(stack(name) for name in kind._fields[:2]),
+                            np.array([int(c.length) for c in layers],
+                                     dtype=np.int32))
     return out

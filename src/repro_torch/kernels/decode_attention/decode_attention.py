@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from .. import build
 from ..common import SMEM_LIMIT_BYTES, LaunchCounter
@@ -48,8 +49,10 @@ def cluster_size(B: int, H: int, KV: int, C: int) -> int:
 
 
 def check_inputs(q, k, v) -> None:
-    if q.ndim != 3 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"q must be (B, H, hd) and k, v (B, KV, C, hd), got "
+    if q.ndim != 3 or k.ndim != 4 or v.ndim != 4 \
+            or v.shape[:3] != k.shape[:3] or v.shape[3] > k.shape[3]:
+        raise ValueError(f"q must be (B, H, hd), k (B, KV, C, hd) and v "
+                         f"(B, KV, C, hd_v) with hd_v <= hd, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, hd = q.shape
@@ -64,10 +67,13 @@ def check_inputs(q, k, v) -> None:
 
 
 def decode_attention_cuda(q, k, v, pos, *, window: int = 0) -> torch.Tensor:
-    """One-token GQA decode: q (B, H, hd), cache k, v (B, KV, C, hd), pos
-    (B,) int32 (or a scalar for every row) -> (B, H, hd) in q's dtype.  One
-    cluster of thread blocks per (row, kv head, group of 4 query heads),
-    splitting its valid rows and merging them in the same launch."""
+    """One-token GQA decode: q (B, H, hd), cache k (B, KV, C, hd) and v
+    (B, KV, C, hd_v), hd_v <= hd, pos (B,) int32 (or a scalar for every
+    row) -> (B, H, hd_v) in q's dtype.  One cluster of thread blocks per
+    (row, kv head, group of 4 query heads), splitting its valid rows and
+    merging them in the same launch.  A narrower v (MLA's) is zero-padded
+    to hd and the output sliced back: the zero columns add nothing to any
+    p @ v."""
     check_inputs(q, k, v)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos, window=window)
@@ -85,12 +91,15 @@ def decode_attention_cuda(q, k, v, pos, *, window: int = 0) -> torch.Tensor:
         raise NotImplementedError(f"decode_attention kernel takes hd <= "
                                   f"{MAX_HEAD_DIM}, got {hd}")
     pos = row_positions(pos, B, q.device)
+    hd_v = v.shape[3]
+    if hd_v < hd:
+        v = F.pad(v, (0, hd - hd_v))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     # a view into the middle of a storage may start off the 16-byte grid
     q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)
     if B == 0 or H == 0:
-        return out
+        return out[..., :hd_v]
     lib = _lib()
     smem = lib.decode_attention_shared_bytes(hd, q.element_size())
     if smem > SMEM_LIMIT_BYTES:
@@ -105,4 +114,4 @@ def decode_attention_cuda(q, k, v, pos, *, window: int = 0) -> torch.Tensor:
             int(q.dtype == torch.bfloat16), stream)
     build.check(lib, err, "decode_attention kernel launch")
     launches.add()
-    return out
+    return out[..., :hd_v]

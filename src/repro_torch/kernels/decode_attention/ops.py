@@ -7,7 +7,8 @@ from .ref import decode_attention_ref
 
 
 def decode_attn(q, k, v, pos, *, window: int = 0, use_kernel: bool = True):
-    """q (B, H, hd); k, v (B, KV, C, hd); pos (B,) int32 or a scalar.
+    """q (B, H, hd); k (B, KV, C, hd); v (B, KV, C, hd_v), hd_v <= hd; pos
+    (B,) int32 or a scalar; returns (B, H, hd_v).
     ``use_kernel=False`` runs the plain version on any device (the JAX
     entry point's ``use_pallas=False``)."""
     if use_kernel:

@@ -21,9 +21,11 @@ def row_positions(pos, batch: int, device) -> torch.Tensor:
 
 
 def decode_attention_ref(q, k, v, pos, *, window: int = 0):
-    """q: (B, H, hd); k, v: (B, KV, C, hd); pos: (B,) (or scalar) index of
-    each row's last valid cache slot.  Softmax over the whole cache in
-    float32, invalid slots at -1e30."""
+    """q: (B, H, hd); k: (B, KV, C, hd); v: (B, KV, C, hd_v) with hd_v <= hd
+    (MLA's values are narrower than its keys); pos: (B,) (or scalar) index
+    of each row's last valid cache slot.  Softmax over the whole cache in
+    float32 at scale hd**-0.5, invalid slots at -1e30; returns
+    (B, H, hd_v)."""
     B, H, hd = q.shape
     KV, C = k.shape[1], k.shape[2]
     G = H // KV
@@ -38,7 +40,7 @@ def decode_attention_ref(q, k, v, pos, *, window: int = 0):
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bkgc,bkcd->bkgd", p, v.float())
-    return o.reshape(B, H, hd).to(q.dtype)
+    return o.reshape(B, H, v.shape[3]).to(q.dtype)
 
 
 def share_bounds(pos, C: int, window: int, shares: int) -> torch.Tensor:

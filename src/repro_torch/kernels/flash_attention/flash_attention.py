@@ -45,9 +45,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def check_inputs(q, k, v) -> None:
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"q must be (B, H, Sq, hd) and k, v (B, KV, Sk, hd), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
+            or v.shape[:3] != k.shape[:3] or v.shape[3] > k.shape[3]:
+        raise ValueError(f"q must be (B, H, Sq, hd), k (B, KV, Sk, hd) and v "
+                         f"(B, KV, Sk, hd_v) with hd_v <= hd, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, _, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[1]:
@@ -126,11 +128,14 @@ def _cuda_core(lib, q, k, v, causal: bool, window: int):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
-    """Causal / sliding-window GQA forward: q (B, H, Sq, hd), k, v
-    (B, KV, Sk, hd) -> (B, H, Sq, hd) in q's dtype.  On CUDA, bf16 with
-    hd <= 128 runs the tensor-core instance and returns a tensor with q's
-    strides (so the model's (B, S, H, hd) views need no copy in or out);
-    float32 and wider heads run the CUDA-core instance."""
+    """Causal / sliding-window GQA forward: q (B, H, Sq, hd), k
+    (B, KV, Sk, hd) and v (B, KV, Sk, hd_v), hd_v <= hd -> (B, H, Sq, hd_v)
+    in q's dtype.  On CUDA, bf16 with hd <= 128 runs the tensor-core
+    instance and returns a tensor with q's strides (so the model's
+    (B, S, H, hd) views need no copy in or out); float32 and wider heads
+    run the CUDA-core instance.  A narrower v (MLA's) is zero-padded to hd
+    and the output sliced back: the zero columns add nothing to any
+    p @ v."""
     check_inputs(q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
@@ -141,12 +146,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     if hd > MAX_HEAD_DIM:
         raise NotImplementedError(f"flash_attention kernel takes hd <= "
                                   f"{MAX_HEAD_DIM}, got {hd}")
+    hd_v = v.shape[3]
     if q.numel() == 0 or Sk == 0:
-        return torch.zeros_like(q)
+        return torch.zeros_like(q[..., :hd_v])
+    if hd_v < hd:
+        v = F.pad(v, (0, hd - hd_v))
     lib = _lib()
     run = _tensor_core if instance(q.dtype, hd) == "tensor-core" \
         else _cuda_core
     with torch.cuda.device(q.device):
         out = run(lib, q, k, v, causal, window)
     launches.add()
-    return out
+    return out[..., :hd_v]

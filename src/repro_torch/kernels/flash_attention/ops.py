@@ -8,7 +8,8 @@ from .ref import attention_ref
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               use_kernel: bool = True):
-    """q (B, H, Sq, hd); k, v (B, KV, Sk, hd).  ``use_kernel=False`` runs
+    """q (B, H, Sq, hd); k (B, KV, Sk, hd); v (B, KV, Sk, hd_v), hd_v <= hd;
+    returns (B, H, Sq, hd_v).  ``use_kernel=False`` runs
     the plain version on any device (the JAX entry point's
     ``use_pallas=False``)."""
     if use_kernel:

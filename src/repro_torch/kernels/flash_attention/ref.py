@@ -8,8 +8,9 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd).  Full Sq x Sk softmax in
-    float32, masked scores at -1e30."""
+    """q: (B, H, Sq, hd); k: (B, KV, Sk, hd); v: (B, KV, Sk, hd_v) with
+    hd_v <= hd.  Full Sq x Sk softmax in float32 at scale hd**-0.5, masked
+    scores at -1e30; returns (B, H, Sq, hd_v)."""
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     groups = H // KV

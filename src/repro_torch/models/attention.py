@@ -1,6 +1,7 @@
 """GQA attention (the port of ``repro.models.attention``): the full-sequence
-path through the flash-attention kernel and the one-token decode path
-through the decode-attention kernel.
+path through the flash-attention kernel and the one-token decode path,
+over a linear or (with a sliding window) ring KV cache, through the
+decode-attention kernel.
 
 The KV cache is kept in the kernels' layout, ``(B, KV, C, hd)``, so no step
 transposes it (the JAX layout is ``(B, C, KV, hd)``; ``repro_torch.convert``
@@ -18,9 +19,6 @@ from ..kernels.decode_attention.ops import decode_attn
 from ..kernels.flash_attention.ops import attention
 from .config import ModelConfig
 from .layers import cdtype, dense_init, rotate
-
-#: ROADMAP item that ports the sliding-window ring decode.
-SWA_DECODE_TODO = "ROADMAP queue 1 item 11c (sliding-window ring decode)"
 
 
 def attn_init(cfg: ModelConfig, generator, device, dtype) -> dict:
@@ -86,12 +84,16 @@ def attn_decode(params, x: torch.Tensor, pos: torch.Tensor, rope,
     """One-token decode.  x: (B, 1, D); pos: (B,) int32, each row's absolute
     position; rope: ``layers.rope_tables`` of ``pos`` as (B, 1).  Writes
     row b's k and v at cache slot ``pos[b] % C`` in place and attends over
-    slots ``0..pos[b]``."""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"decode with a sliding window ({cfg.name}: "
-            f"{cfg.sliding_window}) needs the ring-buffer mask, which the "
-            f"decode kernel does not compute: {SWA_DECODE_TODO}")
+    slots ``0..min(pos[b], C - 1)``.
+
+    With a sliding window the cache is a ring of ``C = min(cache_len,
+    window)`` slots.  JAX masks each slot by the position stored in it
+    (valid when >= 0 and inside the window); since ``C <= window`` that is
+    exactly ``slot <= pos``: the slots ``0..pos`` before the ring wraps,
+    every slot after.  Softmax does not depend on the slots' order, so the
+    kernel runs with ``window=0`` and the absolute ``pos``.  Its own
+    window test compares slot indices with absolute positions, which on a
+    wrapped ring would mask valid slots."""
     B = x.shape[0]
     C = cache.k.shape[2]
     q, k, v = _qkv(params, x, cfg)
@@ -103,7 +105,8 @@ def attn_decode(params, x: torch.Tensor, pos: torch.Tensor, rope,
     cache.v[batch, :, slot] = v[:, 0].to(cache.v.dtype)
     cache = KVCache(cache.k, cache.v, (pos.max() + 1).to(torch.int32))
 
-    o = decode_attn(q[:, 0], cache.k, cache.v, pos,
+    # window=0 on a ring too: "slot <= pos" is the ring's mask (docstring)
+    o = decode_attn(q[:, 0], cache.k, cache.v, pos, window=0,
                     use_kernel=use_kernels)                   # (B, H, hd)
     o = o.reshape(B, 1, -1).to(cdtype(cfg))
     return o @ params["wo"].to(cdtype(cfg)), cache

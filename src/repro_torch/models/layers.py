@@ -22,12 +22,14 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def dense_init(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """float32 truncated normal on [-3, 3] over sqrt(fan_in = shape[0])
-    (the JAX ``dense_init`` law; the bits differ from threefry's)."""
+def dense_init(shape, generator: torch.Generator, device,
+               scale: float = 1.0) -> torch.Tensor:
+    """float32 truncated normal on [-3, 3] times scale over sqrt(fan_in =
+    shape[0]) (the JAX ``dense_init`` law; the bits differ from
+    threefry's)."""
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
-    return w.mul_(1.0 / math.sqrt(shape[0]))
+    return w.mul_(scale / math.sqrt(shape[0]))
 
 
 # -- RMSNorm -----------------------------------------------------------------

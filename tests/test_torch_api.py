@@ -203,7 +203,10 @@ def test_import_leaves_jax_and_repro_unloaded():
         "'core.engine.tuning', 'serving.live', 'cluster.gang', "
         "'kernels.live_admission.live_admission', "
         "'kernels.live_admission.ops', 'kernels.live_admission.ref', "
-        "'kernels.live_admission.sequences'):\n"
+        "'kernels.live_admission.sequences', 'models.mla', 'models.moe', "
+        "'models.blocks', 'configs.deepseek_v2_lite_16b', "
+        "'configs.dbrx_132b', 'configs.jamba_1_5_large_398b', "
+        "'configs.h2o_danube_3_4b'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -9,6 +9,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.decode_attention.decode_attention import \
@@ -229,3 +230,63 @@ def test_wrappers_check_their_inputs():
                     torch.zeros(2, 2, 8, 16), torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_attention_cuda(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_narrower_values_match_jax(dtype):
+    """MLA's widths: q and k 24 wide, v 16.  The flash entry point equals
+    JAX's chunked attention (which takes v at its own width); the decode
+    entry point equals JAX's MLA decode einsums (scores over q . k, then
+    p @ v), on a ring-free cache with per-row positions."""
+    from repro.models.attention import chunked_attention
+    B, H, S, hd, hd_v = 2, 4, 40, 24, 16
+    (jq, jk, jv), (q, k, v) = _inputs(
+        3, [(B, H, S, hd), (B, H, S, hd), (B, H, S, hd_v)], dtype)
+    ref = chunked_attention(*(x.transpose(0, 2, 1, 3) for x in (jq, jk, jv)),
+                            causal=True, q_chunk=8, kv_chunk=8)
+    got = attention(q, k, v, causal=True)
+    assert got.shape == (B, H, S, hd_v)
+    _close(got.transpose(1, 2), ref, dtype)
+    pos = np.array([0, 17], np.int32)
+    got = decode_attn(q[:, :, 0], k, v, torch.from_numpy(pos))
+    assert got.shape == (B, H, hd_v)
+    s = jnp.einsum("bhd,bhcd->bhc", jq[:, :, 0].astype(jnp.float32),
+                   jk.astype(jnp.float32)) * hd ** -0.5
+    s = jnp.where(jnp.arange(S)[None, None] <= pos[:, None, None], s, -1e30)
+    ref = jnp.einsum("bhc,bhcd->bhd", jax.nn.softmax(s, axis=-1),
+                     jv.astype(jnp.float32))
+    _close(got, ref.astype(jq.dtype), dtype)
+    with pytest.raises(ValueError, match="hd_v <= hd"):
+        attention(v, v, k)
+    with pytest.raises(ValueError, match="hd_v <= hd"):
+        decode_attn(v[:, :, 0], v, k, 0)
+
+
+@pytest.mark.parametrize("C,window", [(32, 32), (12, 40)])
+def test_ring_decode_equals_the_linear_window(C, window):
+    """The ring decode's mask: a ring of C <= window slots, slot i holding
+    the latest position == i (mod C), attended with ``window=0`` and the
+    absolute position, equals the linear cache of every position through
+    the window mask, before, at and past the wrap (JAX's stored-position
+    mask, src/repro/models/attention.py)."""
+    rng = np.random.default_rng(7)
+    B, H, KV, hd = 5, 4, 2, 16
+    pos = np.array([C - 1, C, C + 3, 2 * C + 5, 3 * C + 1])
+    T = int(pos.max()) + 1
+    lin_k = torch.from_numpy(rng.standard_normal((B, KV, T, hd)).astype(
+        np.float32))
+    lin_v = torch.from_numpy(rng.standard_normal((B, KV, T, hd)).astype(
+        np.float32))
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32))
+    ring_k = torch.zeros(B, KV, C, hd)
+    ring_v = torch.zeros(B, KV, C, hd)
+    for b, p in enumerate(pos):
+        for t in range(max(0, p - C + 1), p + 1):
+            ring_k[b, :, t % C] = lin_k[b, :, t]
+            ring_v[b, :, t % C] = lin_v[b, :, t]
+    p = torch.from_numpy(pos.astype(np.int32))
+    got = decode_attn(q, ring_k, ring_v, p, window=0)
+    # the ring holds the last C positions; with C < window the linear
+    # window must be cut to C to see the same entries
+    ref = decode_attention_ref(q, lin_k, lin_v, p, window=min(C, window))
+    torch.testing.assert_close(got, ref, atol=2e-6, rtol=2e-6)

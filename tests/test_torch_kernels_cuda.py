@@ -782,6 +782,10 @@ DECODE_CASES = [
     (16, 32, 8, 1001, 128, (0, 1, 7, 63, 64, 65, 127, 128, 200, 333, 500,
                             640, 777, 999, 1000, 1000), 100, torch.float32),
     (16, 8, 2, 777, 64, tuple(range(5, 777, 49)), 30, torch.bfloat16),
+    # a ring (window=0 and the absolute positions, past the wrap up to
+    # 3 C): h2o-danube-3-4b's decode shape, then a small float32 one
+    (4, 32, 8, 4096, 120, (4095, 4096, 6000, 12287), 0, torch.bfloat16),
+    (4, 8, 2, 64, 64, (63, 64, 130, 191), 0, torch.float32),
 ]
 
 
@@ -957,6 +961,140 @@ def test_model_on_card_kernels_equal_plain(cuda, dtype):
     ref = M.prefill(params, cfg, tokens=toks, use_kernels=False)
     assert fa.launches.count == cfg.num_layers
     assert float((last - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+
+
+MLA_DECODE_CASES = [
+    # (B, C, pos, dtype): deepseek-v2-lite-16b's decode (H = KV = 16, G = 1,
+    # q and k 192 wide, v 128) at the serve shape, one row, and past C
+    (4, 2048, (0, 700, 1500, 2047), torch.bfloat16),
+    (4, 2048, (0, 700, 1500, 2047), torch.float32),
+    (1, 300, (299,), torch.bfloat16),
+    (3, 128, (127, 128, 400), torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,C,pos,dtype", MLA_DECODE_CASES)
+def test_decode_attention_kernel_at_mla_widths(cuda, B, C, pos, dtype):
+    """v narrower than q and k: the wrapper pads it to 192 and slices the
+    output, one launch, equal to the plain version at v's own width."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rng = np.random.default_rng(C)
+    H, hd, hd_v = 16, 192, 128
+    q = _normal(rng, (B, H, hd), dtype, cuda)
+    k = _normal(rng, (B, H, C, hd), dtype, cuda)
+    v = _normal(rng, (B, H, C, hd_v), dtype, cuda)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = da.launches.count
+    got = da.decode_attention_cuda(q, k, v, p)
+    torch.cuda.synchronize()
+    assert da.launches.count == before + 1
+    assert got.shape == (B, H, hd_v) and got.dtype == dtype
+    _close(got, decode_attention_ref(q, k, v, p), dtype)
+
+
+def test_decode_attention_kernel_on_a_wrapped_ring_equals_the_window(cuda):
+    """h2o-danube-3-4b's ring (C = window = 4096) at positions before, at
+    and past the wrap: the kernel with window=0 on the ring equals the
+    plain version on the linear cache of every position with the window
+    mask (slots outside the window hold other values)."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rng = np.random.default_rng(12)
+    B, H, KV, C, hd = 4, 32, 8, 4096, 120
+    pos = (4095, 4096, 6000, 12287)
+    T = max(pos) + 1
+    lin_k = _normal(rng, (B, KV, T, hd), torch.bfloat16, cuda)
+    lin_v = _normal(rng, (B, KV, T, hd), torch.bfloat16, cuda)
+    q = _normal(rng, (B, H, hd), torch.bfloat16, cuda)
+    ring_k = torch.empty(B, KV, C, hd, dtype=torch.bfloat16, device=cuda)
+    ring_v = torch.empty_like(ring_k)
+    for b, p in enumerate(pos):
+        t = torch.arange(p - C + 1, p + 1, device=cuda).clamp_min(0)
+        ring_k[b, :, t % C] = lin_k[b, :, t]
+        ring_v[b, :, t % C] = lin_v[b, :, t]
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    got = da.decode_attention_cuda(q, ring_k, ring_v, p, window=0)
+    torch.cuda.synchronize()
+    ref = decode_attention_ref(q.float(), lin_k.float(), lin_v.float(), p,
+                               window=C)
+    _close(got, ref, torch.bfloat16)
+    ring = decode_attention_ref(q.float(), ring_k.float(), ring_v.float(), p)
+    torch.testing.assert_close(ring, ref, atol=2e-5, rtol=2e-5)
+
+
+MLA_FLASH_CASES = [
+    # (B, H, S, hd, hd_v, dtype): deepseek-v2-lite-16b's prefill (q and k
+    # 192, v 128: the CUDA-core instance), ragged S, float32; and v
+    # narrower than hd = 128 on the bf16 tensor-core instance
+    (1, 16, 2048, 192, 128, torch.bfloat16),
+    (2, 16, 300, 192, 128, torch.bfloat16),
+    (1, 16, 300, 192, 128, torch.float32),
+    (1, 8, 200, 128, 64, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,H,S,hd,hd_v,dtype", MLA_FLASH_CASES)
+def test_flash_attention_kernel_at_mla_widths(cuda, B, H, S, hd, hd_v,
+                                              dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    rng = np.random.default_rng(S + hd_v)
+    q = _normal(rng, (B, H, S, hd), dtype, cuda)
+    k = _normal(rng, (B, H, S, hd), dtype, cuda)
+    v = _normal(rng, (B, H, S, hd_v), dtype, cuda)
+    before = fa.launches.count
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches.count == before + 1
+    assert got.shape == (B, H, S, hd_v) and got.dtype == dtype
+    _close(got, attention_ref(q, k, v, causal=True), dtype)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "h2o-danube-3-4b",
+                                  "jamba-1.5-large-398b", "dbrx-132b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_new_archs_on_card_kernels_equal_plain(cuda, arch, dtype):
+    """MLA (one decode launch a layer, flash at 24 / 16 wide), the ring
+    past h2o-danube's smoke window (32) over 80 steps, Jamba's one
+    attention layer of eight and MoE: decode_step and prefill with the
+    kernels against the plain versions, each (step, row) within 1e-4
+    (float32) or 2e-2 (bf16) of the max.  In bf16 the kernels' rounding
+    can tip an MoE router's near tie, so there 10% of them may differ
+    (as tests/test_torch_models.py holds bf16 MoE stacks)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import model as M
+    cfg = get_smoke_config(arch).with_(dtype=dtype)
+    params = M.init_params(cfg, 0, device=cuda)
+    attn = sum(d[0] != "mamba" for d in M.layer_descs(cfg))
+    T = 80
+    toks = torch.randint(0, cfg.vocab_size, (3, T), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(2))
+    caches = {u: M.init_cache(cfg, 3, 96, device=cuda) for u in (True, False)}
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    spare = 0.1 if dtype == "bfloat16" and cfg.num_experts else 0.0
+    da.launches.reset()
+    off = []
+    for i in range(T):
+        pos = torch.tensor([i, max(i - 5, 0), i // 2], dtype=torch.int32,
+                           device=cuda)
+        out = {}
+        for u in (True, False):
+            out[u], caches[u] = M.decode_step(params, cfg, toks[:, i:i + 1],
+                                              pos, caches[u], use_kernels=u)
+        scale = float(out[False].abs().max())
+        off += ((out[True] - out[False]).abs().amax(-1) > tol * scale
+                ).flatten().tolist()
+    assert np.mean(off) <= spare
+    assert da.launches.count == T * attn
+    fa.launches.reset()
+    got, _ = M.forward(params, cfg, tokens=toks[:, :64])
+    ref, _ = M.forward(params, cfg, tokens=toks[:, :64], use_kernels=False)
+    assert fa.launches.count == attn
+    off = (got - ref).abs().amax(-1) > tol * float(ref.abs().max())
+    assert float(off.float().mean()) <= spare
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,8 @@ from repro.models import model as JM  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
-from repro_torch.convert import (mamba_caches_from_numpy,  # noqa: E402
-                                 mamba_caches_to_numpy,
+from repro_torch.convert import (caches_from_numpy,  # noqa: E402
+                                 caches_to_numpy,
                                  model_params_from_numpy)
 from repro_torch.core.quantize import RES  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as sk  # noqa: E402
@@ -125,7 +125,7 @@ def test_teacher_forced_decode_and_caches_match_jax(dtype):
         .astype(np.int32)
     jcache = JM.init_cache(jc, B, 32)
     jcache32 = JM.init_cache(jc32, B, 32)
-    cache = mamba_caches_from_numpy(jax.tree.map(np.asarray, jcache), tc,
+    cache = caches_from_numpy(jax.tree.map(np.asarray, jcache), tc,
                                     "cpu")
     assert cache[0].conv.dtype == getattr(torch, dtype)
     assert cache[0].ssm.dtype == torch.float32
@@ -139,13 +139,13 @@ def test_teacher_forced_decode_and_caches_match_jax(dtype):
                                    i, cache)
         _close(got, ref, dtype)
     ref = jax.tree.map(lambda a: np.asarray(a, np.float32), jcache)["p0"]
-    mine = mamba_caches_to_numpy(cache, tc)["p0"]
+    mine = caches_to_numpy(cache, tc)["p0"]
     for name in ("conv", "ssm"):
         _close(getattr(mine, name), getattr(ref, name), dtype)
     np.testing.assert_array_equal(mine.length, np.asarray(ref.length))
     assert list(mine.length) == [T] * tc.num_layers
-    back = mamba_caches_to_numpy(
-        mamba_caches_from_numpy({"p0": mine}, tc, "cpu"), tc)["p0"]
+    back = caches_to_numpy(
+        caches_from_numpy({"p0": mine}, tc, "cpu"), tc)["p0"]
     for a, b in zip(back, mine):
         np.testing.assert_array_equal(a, b)
 
@@ -247,7 +247,7 @@ def test_engine_matches_jax_token_for_token():
     assert max(eng.stats["queue_len"]) > 0
     np.testing.assert_array_equal(eng.admission.residual, RES)
     for rep, jrep in zip(eng.replicas, ref.replicas):
-        mine = mamba_caches_to_numpy(rep.caches, tc)["p0"]
+        mine = caches_to_numpy(rep.caches, tc)["p0"]
         theirs = jrep.caches["p0"]
         np.testing.assert_allclose(mine.conv, np.asarray(theirs.conv),
                                    atol=1e-5, rtol=1e-5)

@@ -208,3 +208,45 @@ def test_engine_options_and_invariants(smoke):
         eng.check_invariants()
     assert err.value.invariant == "slot_map"
     assert isinstance(err.value, ValueError)
+
+
+def _long_requests(R, vocab):
+    """Six requests of 30-60 prompt tokens and 20-35 new ones: up to 95
+    positions, past two turns of h2o-danube's smoke window (32)."""
+    rng = np.random.default_rng(3)
+    return [R(rid=i,
+              prompt=rng.integers(1, vocab, size=rng.integers(30, 61))
+              .astype(np.int32),
+              max_new=int(rng.integers(20, 36)))
+            for i in range(6)]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "h2o-danube-3-4b",
+                                  "jamba-1.5-large-398b"])
+def test_new_arch_engines_match_jax_token_for_token(arch):
+    """MLA with MoE, the sliding-window ring with c_max = 96 over a window
+    of 32 (six long requests: the ring wraps), and Jamba's mix of Mamba,
+    attention and MoE (six of the short requests above): the f32 smoke
+    engines equal JAX's in placements, tokens and stats."""
+    jc = j_smoke(arch).with_(dtype="float32")
+    tc = ModelConfig(**dataclasses.asdict(jc))
+    jp = JM.init_params(jc, jax.random.PRNGKey(0))
+    tp = model_params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    kw = dict(num_replicas=2, b_slots=2, c_max=96, policy="bf")
+
+    def reqs(R):
+        return _long_requests(R, tc.vocab_size) if tc.sliding_window \
+            else _requests(R, tc.vocab_size)[:6]
+    ref = JEngine(jc, jp, **kw)
+    ref.submit(reqs(JRequest))
+    ref_done = ref.run(max_steps=2000)
+    eng = ServingEngine(tc, tp, audit=True, device="cpu", **kw)
+    eng.submit(reqs(Request))
+    done = eng.run(max_steps=2000)
+    assert len(done) == 6
+    assert [(r.rid, r.replica, r.slot, r.out) for r in done] == \
+        [(r.rid, r.replica, r.slot, r.out) for r in ref_done]
+    assert eng.stats == ref.stats
+    if tc.sliding_window:
+        assert eng.replicas[0].caches[0].k.shape[2] == tc.sliding_window
+        assert max(r.pos for r in done) > 2 * tc.sliding_window

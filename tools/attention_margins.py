@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Read the bf16 attention checks of ``chip_smoke.py`` on the sound
+kernels and on kernels with a planted fault, to place each limit between
+the two.
+
+    python3 tools/attention_margins.py [--seeds 0 1 2]
+        [--faults 1.005 1.01 0.99] [--no-models]
+
+A planted fault multiplies the softmax scale that the decode_attention and
+flash_attention wrappers hand their kernels by a factor (the launches'
+one float argument; the sources are not touched).  The script prints, on
+every seed sound and with each fault:
+
+* each kernel row of ``chip_smoke.py`` (``DECODE_SHAPES`` and
+  ``FLASH_SHAPES`` at each window): the kernel against the plain
+  version's float32 output, max |diff| / max |out| of a query (held at
+  ``BF16_REL_TOL``) and over the whole output (``rel_errs``);
+
+and, unless ``--no-models``, sound on every seed and with each fault on
+the first:
+
+* deepseek-v2-lite-16b's bf16 teacher-forced gate at full width and
+  depth, the kernels run on the plain run's expert picks
+  (``moe_gate(pin=True)``, held at ``MOE_BF16_TOL``);
+* h2o-danube-3-4b's bf16 ring step at full width, kernels against plain
+  (``ring_step`` on ``danube_rings``, held at ``RING_BF16_TOL``).
+
+It needs a CUDA device and exits non-zero without one.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import sys
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402  (puts src/ on sys.path)
+
+
+@contextlib.contextmanager
+def scale_fault(factor: float):
+    """Inside, every decode_attention and flash_attention launch runs with
+    its softmax scale times ``factor``."""
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    class Faulty:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self.lib, name)
+            if not name.endswith("_launch"):
+                return fn
+            return lambda *a: fn(*(x * factor if isinstance(x, float) else x
+                                   for x in a))
+    saved = da._lib, fa._lib
+    da._lib = lambda: Faulty(saved[0]())
+    fa._lib = lambda: Faulty(saved[1]())
+    try:
+        yield
+    finally:
+        da._lib, fa._lib = saved
+
+
+def kernel_rows(dev, seeds, faults) -> None:
+    import torch
+    for kernel, shapes in (("decode_attention", cs.DECODE_SHAPES),
+                           ("flash_attention", cs.FLASH_SHAPES)):
+        for tag, shape in shapes.items():
+            for window in shape[-1]:
+                for seed in seeds:
+                    inputs = cs.attention_inputs(dev, seed, kernel, tag)
+                    kern, _, plain32, _, _ = cs.attention_calls(
+                        kernel, inputs, window)
+                    ref = plain32()
+                    cells = []
+                    for factor in (1.0, *faults):
+                        with scale_fault(factor):
+                            got = kern()
+                        torch.cuda.synchronize()
+                        rel, rel_all = cs.rel_errs(got, ref)
+                        cells.append(f"x{factor:g} {rel:.4g} ({rel_all:.4g})")
+                        del got
+                    del ref, inputs
+                    print(f"{kernel} {tag} window={window} seed {seed}: max "
+                          f"|diff| / max |out| a query (over the whole "
+                          f"output) vs float32 plain: "
+                          f"{'; '.join(cells)} [limit "
+                          f"{cs.BF16_REL_TOL[kernel]:g}]", flush=True)
+                torch.cuda.empty_cache()
+
+
+def deepseek_gates(dev, seeds, faults) -> None:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("deepseek-v2-lite-16b")
+    for seed in seeds:
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed), device=dev)
+        # chip_smoke.deepseek_path's first draw of its generator
+        prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+            1, cfg.vocab_size, (1, cs.MOE_GATE_TOKENS)).astype(np.int64)
+        ).to(dev)
+        for factor in (1.0, *(faults if seed == seeds[0] else ())):
+            with scale_fault(factor):
+                r = cs.moe_gate(cfg, params, prompt, pin=True)
+            print(f"deepseek bf16 pinned gate seed {seed} x{factor:g}: "
+                  f"decode {r['kernels']:.4g}, prefill {r['prefill']:.4g} "
+                  f"[limit {cs.MOE_BF16_TOL:g}]", flush=True)
+        del params
+        torch.cuda.empty_cache()
+
+
+def ring_steps(dev, seeds, faults) -> None:
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    counters = {"decode_attention": da.launches}
+    for seed in seeds:
+        cfg, _, params, rings, tok, pos = cs.danube_rings(dev, seed)
+        for factor in (1.0, *(faults if seed == seeds[0] else ())):
+            with scale_fault(factor):
+                rel, _ = cs.ring_step(cfg, params, rings, tok, pos, counters,
+                                      da.launches.reset)
+            print(f"danube bf16 ring step seed {seed} x{factor:g}: kernels "
+                  f"vs plain {rel:.4g} [limit {cs.RING_BF16_TOL:g}]",
+                  flush=True)
+        del params, rings
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--faults", type=float, nargs="+",
+                    default=[1.005, 1.01, 0.99])
+    ap.add_argument("--no-models", action="store_true")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("attention_margins: no CUDA device is available",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    print(f"card: {cs.gpu_name_and_power_limit()}", flush=True)
+    kernel_rows(dev, args.seeds, args.faults)
+    if not args.no_models:
+        deepseek_gates(dev, args.seeds, args.faults)
+        ring_steps(dev, args.seeds, args.faults)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
