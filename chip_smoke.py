@@ -115,7 +115,24 @@ port's paths through the entry points a user calls:
     linear 12288-slot cache through the window mask; a serve with c_max
     8192 and one 8192-token prefill.  Then both attention kernels at these
     shapes against their plain versions, with device, bound and SDPA
-    times.
+    times;
+  * training on one device (phase 15): the flash backward kernel
+    (``csrc/flash_attention_bwd.cu``) against its plain version
+    (``attention_bwd_ref``, float32) at ``BWD_SHAPES`` (llama3-8b's
+    microbatch in bf16 and float32, the 10M model, danube's window, MLA's
+    widths), two calls equal bit for bit, timed beside SDPA's forward and
+    backward (15a); llama3-8b at full width (d_model 4096, 32/8 heads,
+    d_ff 14336, vocab 128256), depth cut to ``TRAIN_LAYERS`` = 4 of 32,
+    float32 masters from ``--seed`` and bf16 compute: the gradients
+    through the kernels held per parameter to the plain attention's on
+    the same card in bf16 and float32, ``Trainer.run`` for 4 steps of 2
+    microbatches x 2 x 2048 tokens with every loss finite and exact
+    launch counts (per layer and microbatch a flash forward, its remat
+    re-run and two backward launches), a profile of one step, then the
+    trained weights in bf16 served (15b); examples/train_small.py's 10M
+    model trained 60 steps (the loss falls by 10%), and a run preempted
+    at step 36 and resumed from its step-36 checkpoint equal to the
+    uninterrupted one bit for bit, under deterministic algorithms (15c).
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; it must launch its own kernel and no other.  The
@@ -127,7 +144,7 @@ bench-shape comparisons' horizons halved (``BENCH_SLOTS``), when the
 trace path came in, to keep the run inside its limit on a slow host).
 Each phase prints its host seconds on a line of its own, and the "all phases
 passed" line the total.  The second-to-last line of stdout is a JSON object
-with one entry per kernel, nine, live_admission last (launches, error
+with one entry per kernel, ten, live_admission last (launches, error
 against the plain version, kernel, plain, bound and library times; the attention
 kernels' and SDPA's times are device times of a CUDA graph of calls, since
 an eager decode call is bound by the host; best_fit's row adds ``ms_g1``,
@@ -137,7 +154,10 @@ decode_attention and flash_attention rows add phase 14's shapes under
 suffixed keys, ``ms_mla``, ``bound_ms_mla``, ``library_ms_mla`` and the
 rest for MLA's widths, ``_ring`` for the wrapped ring decode, ``_swa``
 for the windowed 8192-token prefill, and ``launches_phase_14a`` /
-``launches_phase_14b``); the last line is
+``launches_phase_14b``; flash_attention_bwd's row is llama's bf16
+microbatch, the other 15a shapes under suffixed keys such as
+``ms_llama_float32`` and ``ms_swa_bfloat16``, and its launches are
+15b's, 15c's under ``launches_phase_15c``); the last line is
 ``{"ok": true, "device": ...}``.  Any failed phase raises, and the script
 exits non-zero without a result — also when no CUDA device is present.
 """
@@ -2853,6 +2873,381 @@ def new_shapes_phase(dev, seed: int) -> tuple[dict, dict]:
     return out[0], out[1]
 
 
+#: 15a's shapes of the flash backward, causal: (B, H, KV, S, hd, hd_v,
+#: window, dtypes).  "llama" is 15b's microbatch at llama3-8b's width,
+#: "10m" 15c's batch at examples/train_small.py's model_10m, "swa"
+#: h2o-danube-3-4b's window, "mla" deepseek-v2-lite-16b's widths.
+BWD_SHAPES = {
+    "llama": (2, 32, 8, 2048, 128, 128, 0, ("bfloat16", "float32")),
+    "10m": (8, 8, 4, 256, 32, 32, 0, ("bfloat16", "float32")),
+    "swa": (1, 32, 8, 8192, 120, 120, 4096, ("bfloat16",)),
+    "mla": (1, 16, 16, 2048, 192, 128, 0, ("bfloat16",))}
+
+#: Limits of 15a's backward checks: the largest over dq, dk and dv of max
+#: |diff| / max |ref| of a row (``grad_rel_errs``), the kernel against the
+#: plain version's float32 gradients on the same inputs.  Readings of
+#: tools/attention_margins.py --backward on every shape, seeds 0-2
+#: (PERF.md, section 6): sound bf16 0.00385-0.00389 (one rounding to
+#: bf16), float32 1.8e-6-5.1e-5; with the backward's softmax scale off by
+#: 0.5%, 0.0219 and more in either type (off by 1% either way: 0.0429 and
+#: more).
+BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
+
+#: Limits of 15b's gradient gate at llama3-8b's width (4 layers): per
+#: parameter, max |diff| / max |grad| of the kernel path's gradients
+#: against the plain attention's on the same card.  float32 decides:
+#: sound 1.5e-6-2.2e-6 on seeds 0-2, the backward's scale off by 0.5%
+#: 0.0082, by 1% 0.0164 (tools/attention_margins.py --backward).  bf16 is
+#: a sanity check: four layers of bf16 rounding read 0.020-0.075 with
+#: sound kernels and the same with the faults, while a dropped gradient
+#: reads 1.
+TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 0.15}
+
+#: 15b: llama3-8b's depth cut from 32 layers (1.92 B parameters, ~31 GB
+#: of float32 masters, gradients and moments; all 32 would be ~128 GB).
+TRAIN_LAYERS = 4
+
+
+def grad_rel_errs(got, ref) -> tuple[float, float]:
+    """``rel_errs`` over a gradient's rows whose reference is not zero: a
+    query row that sees one key has a constant softmax, so its dq is zero
+    in exact arithmetic and only roundoff is left to divide by (such rows,
+    at most 1e-6 of the tensor's max, are read by the whole-tensor
+    reading alone)."""
+    a, b = (x.double().reshape(-1, x.shape[-1]) for x in (got, ref))
+    top = float(b.abs().max())
+    rows = b.abs().amax(-1) > 1e-6 * top
+    per_row = rel_errs(a[rows], b[rows])[0] if bool(rows.any()) else 0.0
+    return per_row, float((a - b).abs().max()) / max(top, 1e-30)
+
+
+def bwd_inputs(dev, seed: int, tag: str, dtype):
+    """q, k, v, dout standard normal from numpy's generator on (seed, tag),
+    in ``dtype`` on the card, and the output of the plain forward rounded
+    to ``dtype`` (the kernel and the plain backward both read it)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, H, KV, S, hd, hd_v, window, _ = BWD_SHAPES[tag]
+    rng = np.random.default_rng([seed, 2, list(BWD_SHAPES).index(tag)])
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(device=dev, dtype=dtype) for s in (
+        (B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd_v), (B, H, S, hd_v)))
+    out = attention_ref(q, k, v, causal=True, window=window)
+    return q, k, v, out, dout
+
+
+def bwd_work(inputs, window: int) -> tuple[int, int]:
+    """Bytes the backward must move (q, k, v, out and dout read once; dq,
+    dk and dv written once) and its products' operations over the visible
+    (query, key) pairs: q k^T, dS K and dS^T Q at 2 hd each, dO V^T and
+    P^T dO at 2 hd_v, a pair and query head."""
+    q, k, v = inputs[:3]
+    B, H, S, hd = q.shape
+    KV, hd_v = k.shape[1], v.shape[3]
+    elems = 2 * (B * H * S * hd + B * KV * S * (hd + hd_v)) \
+        + 2 * B * H * S * hd_v
+    pairs = B * sum(min(i + 1, window) if window else i + 1
+                    for i in range(S))
+    return q.element_size() * elems, 2 * (3 * hd + 2 * hd_v) * H * pairs
+
+
+def bwd_check(tag: str, dtype: str, inputs, window: int) -> dict:
+    """The backward kernel on ``inputs`` against ``attention_bwd_ref`` on
+    their float32 copies (``BWD_TOL``), two calls equal bit for bit; then
+    times the kernel and the plain version (CUDA events after a warm-up)
+    and SDPA's forward and backward at the same mask (the yardstick, never
+    on the path), and takes the bound.  Prints one line; returns the
+    readings and times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    q, k, v, out, dout = inputs
+    kw = dict(causal=True, window=window)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {tag} {dtype}: two calls "
+                             "on the same inputs differ")
+    ref = attention_bwd_ref(*(x.float() for x in inputs), **kw)
+    reads = [grad_rel_errs(a, b) for a, b in zip(got, ref)]
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got, ref))
+    rel = max(r[0] for r in reads)
+    del again, ref
+    if not rel <= BWD_TOL[dtype]:
+        raise AssertionError(f"flash_attention_bwd {tag} {dtype}: max |diff| "
+                             f"/ max |ref| of a row {rel:.4g} over "
+                             f"{BWD_TOL[dtype]:g}")
+    ms = time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout,
+                                                     **kw), 3)
+    plain_ms = time_ms(lambda: attention_bwd_ref(*inputs, **kw), 1)
+    S = q.shape[2]
+    if window:
+        i = torch.arange(S, device=q.device)
+        mask = dict(attn_mask=(i[None] <= i[:, None])
+                    & (i[None] > i[:, None] - window))
+    else:
+        mask = dict(is_causal=True)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **mask)
+        torch.autograd.grad(o, leaves, dout)
+    lib_ms = time_ms(sdpa, 3)
+    nbytes, ops = bwd_work(inputs, window)
+    b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S
+                       if dtype == "bfloat16" else FP32_OPS_PER_S)
+    B, H, _, hd = q.shape
+    print(f"flash_attention_bwd {tag} B={B} H={H} KV={k.shape[1]} S={S} "
+          f"hd={hd} hd_v={v.shape[3]} window={window} {dtype}: max |diff| / "
+          f"max |ref| of a row (dq, dk, dv) "
+          f"{', '.join(f'{r[0]:.4g}' for r in reads)} (limit "
+          f"{BWD_TOL[dtype]:g}), over the whole tensor "
+          f"{', '.join(f'{r[1]:.4g}' for r in reads)}; max abs err "
+          f"{err:.3g}; two calls equal; kernel {ms:.3f} ms ({ops / ms / 1e9:.1f}"
+          f" TFLOP/s), plain {plain_ms:.2f} ms, library (SDPA forward and "
+          f"backward, {'boolean mask' if window else 'is_causal'}) "
+          f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes:.4g} B, "
+          f"{ops:.4g} operations)", flush=True)
+    return dict(max_abs_err=err, rel=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def bwd_phase(dev, seed: int) -> dict:
+    """15a: the flash backward kernel against its plain version at every
+    ``BWD_SHAPES`` shape and dtype; the row's keys from llama's bf16
+    shape, the others' under suffixed keys (``ms_llama_float32``, ...)."""
+    import torch
+    row = {}
+    for tag, shape in BWD_SHAPES.items():
+        for dtype in shape[-1]:
+            r = bwd_check(tag, dtype, bwd_inputs(dev, seed, tag,
+                                                 getattr(torch, dtype)),
+                          shape[6])
+            torch.cuda.empty_cache()
+            if tag == "llama" and dtype == "bfloat16":
+                row.update((k, r[k]) for k in ROW_KEYS)
+            else:
+                row.update((f"{k}_{tag}_{dtype}", r[k]) for k in ROW_KEYS)
+    return row
+
+
+def train_grad_gate(trainer, params, batch, dtype: str,
+                    check: bool = True) -> float:
+    """15b's gate: the loss's gradients through the flash kernels against
+    the plain attention's on ``batch``, per parameter; every parameter
+    must get a finite gradient.  Returns the largest reading (held to
+    ``TRAIN_GRAD_TOL`` unless ``check`` is off)."""
+    import torch
+    from repro_torch.train.optimizer import tree_leaves
+    grads = {}
+    for use in (True, False):
+        loss, g = trainer.loss_and_grad(params, batch, use_kernels=use)
+        leaves = tree_leaves(g)
+        if any(x is None for x in leaves):
+            raise AssertionError(f"15b {dtype}: a parameter got no gradient "
+                                 f"(use_kernels={use})")
+        if not all(bool(torch.isfinite(x).all()) for x in leaves):
+            raise AssertionError(f"15b {dtype}: a gradient is not finite")
+        grads[use] = (float(loss), leaves)
+    reads = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+             for a, b in zip(grads[True][1], grads[False][1])]
+    worst = max(reads)
+    print(f"15b gradient gate {dtype}: loss {grads[True][0]:.6f} with the "
+          f"kernels, {grads[False][0]:.6f} plain; per parameter max |diff| / "
+          f"max |grad| largest {worst:.4g}, median "
+          f"{float(np.median(reads)):.4g} over {len(reads)} parameters "
+          f"(limit {TRAIN_GRAD_TOL[dtype]:g})", flush=True)
+    del grads
+    torch.cuda.empty_cache()
+    if check and not worst <= TRAIN_GRAD_TOL[dtype]:
+        raise AssertionError(f"15b gradient gate {dtype}: {worst:.4g} over "
+                             f"{TRAIN_GRAD_TOL[dtype]:g}")
+    return worst
+
+
+def train_gates(dev, seed: int, layers: int = TRAIN_LAYERS,
+                check: bool = True) -> tuple:
+    """llama3-8b at full width and ``layers`` layers, float32 masters from
+    ``seed``, and its trainer (15b's configuration); with the gradient
+    gate on the first microbatch of step 1's batch in bf16 and float32.
+    Returns (cfg, tcfg, trainer, params, readings)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_model, device_put_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("llama3-8b").with_(num_layers=layers)
+    tcfg = TrainerConfig(seq_len=2048, global_batch=4, microbatches=2,
+                         steps=4, ckpt_every=0, log_every=1)
+    trainer = Trainer(cfg, tcfg, device=dev)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev, param_dtype=torch.float32)
+    batch = device_put_batch(batch_for_model(cfg, trainer.dcfg, 0), dev)
+    micro = {k: v[:tcfg.global_batch // tcfg.microbatches]
+             for k, v in batch.items()}
+    reads = {}
+    for dtype in ("bfloat16", "float32"):
+        gate = Trainer(cfg.with_(dtype=dtype), tcfg, device=dev)
+        reads[dtype] = train_grad_gate(gate, params, micro, dtype, check)
+    return cfg, tcfg, trainer, params, reads
+
+
+def train_path(dev, seed: int, counters, reset_counters) -> dict:
+    """15b: llama3-8b at full width, depth cut to ``TRAIN_LAYERS``, bf16
+    compute on float32 masters: the gradient gate, then ``Trainer.run``
+    for 4 steps of 2 microbatches x 2 rows x 2048 tokens with exact flash
+    launch counts (a forward, its remat re-run and two backward launches
+    a layer and microbatch), a profile of one step, and the trained
+    weights cast to bf16 and served.  Returns the path's launches."""
+    import torch
+    from repro_torch.data.pipeline import batch_for_model, device_put_batch
+    from repro_torch.train.trainer import TrainState
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tcfg, trainer, params, _ = train_gates(dev, seed)
+    n = param_count(params)
+    print(f"15b: llama3-8b d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_layers} of 32 "
+          f"layers: {n / 1e9:.3f} B parameters, float32 masters, bf16 "
+          f"compute, remat {cfg.remat_policy}", flush=True)
+    state = TrainState(params, trainer.optimizer.init(params))
+    del params
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.run(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: c.count for k, c in counters.items()}
+    hist, secs = state.metrics["loss_history"], state.metrics["step_seconds"]
+    steps, micro = tcfg.steps, tcfg.microbatches
+    want = {"flash_attention": 2 * cfg.num_layers * micro * steps,
+            "flash_attention_bwd": 2 * cfg.num_layers * micro * steps}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"15b: launches {launches}, expected {want} "
+                             "and nothing else")
+    if not all(np.isfinite(hist)):
+        raise AssertionError(f"15b: a loss is not finite: {hist}")
+    tokens = tcfg.global_batch * tcfg.seq_len
+    steady = float(np.mean(secs[1:]))
+    print(f"15b: Trainer.run {steps} steps of {tokens} tokens ({micro} "
+          f"microbatches of {tcfg.global_batch // micro} x {tcfg.seq_len}) in "
+          f"{wall:.2f} s; losses {', '.join(f'{x:.4f}' for x in hist)}; step "
+          f"ms {', '.join(f'{x * 1e3:.1f}' for x in secs)} (host clock, "
+          f"synchronised; steps 2-{steps} mean {steady * 1e3:.1f} ms, "
+          f"{tokens / steady:.0f} tokens/s); peak {peak:.2f} GB "
+          f"(max_memory_allocated); launches flash_attention "
+          f"{launches['flash_attention']}, flash_attention_bwd "
+          f"{launches['flash_attention_bwd']}", flush=True)
+    batch = device_put_batch(batch_for_model(cfg, trainer.dcfg, steps), dev)
+    trainer.train_step(state.params, state.opt_state, batch)
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(state.params, state.opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device_split("15b train", prof, wall_us, 1, "step")
+    del prof, batch
+    served = cast_params(state.params, torch.bfloat16)
+    del state
+    torch.cuda.empty_cache()
+    engine, decode_s = timed_engine(cfg, served, dev, num_replicas=1,
+                                    c_max=256)
+    reqs = short_requests(np.random.default_rng(seed), cfg.vocab_size, 6,
+                          (24, 64), (4, 12))
+    serve_and_count("15b serve of the trained weights", cfg, engine,
+                    decode_s, reqs, counters, reset_counters,
+                    cfg.num_layers)
+    del engine, served
+    torch.cuda.empty_cache()
+    return launches
+
+
+def model_10m():
+    """examples/train_small.py's ``model_10m`` (a LLaMA-style 4-layer
+    model, d_model 256, 8/4 heads of 32, d_ff 1024, vocab 4096)."""
+    from repro_torch.models.config import ModelConfig
+    return ModelConfig(name="llama-10m", family="dense", num_layers=4,
+                       d_model=256, num_heads=8, num_kv_heads=4, d_ff=1024,
+                       vocab_size=4096, head_dim=32)
+
+
+def small_path(dev, counters, reset_counters, steps: int = 60,
+               preempt: int = 36, every: int = 12) -> dict:
+    """15c: ``model_10m`` trained ``steps`` steps at seq_len 256, global
+    batch 8 (examples/train_small.py's settings), with deterministic
+    algorithms on; the mean loss of the last 5 steps must be under 0.9 x
+    the first 5 (tests/test_system.py:27).  A second run is preempted at
+    step ``preempt`` with checkpoints every ``every`` steps and resumed:
+    its parameters, moments and losses must equal the uninterrupted run's
+    bit for bit.  Returns the uninterrupted run's launches."""
+    import tempfile
+
+    import torch
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import (PreemptionError, Trainer,
+                                           TrainerConfig)
+    cfg = model_10m()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            def trainer(tag, **kw):
+                return Trainer(cfg, TrainerConfig(
+                    seq_len=256, global_batch=8, steps=steps,
+                    ckpt_every=every, ckpt_dir=f"{tmp}/{tag}", log_every=20,
+                    peak_lr=6e-4, warmup=20, **kw), device=dev)
+            t = trainer("ref")
+            state = t.init_state()
+            print(f"15c: {cfg.name}, {param_count(state.params) / 1e6:.2f} M "
+                  f"parameters", flush=True)
+            reset_counters()
+            t0 = time.perf_counter()
+            ref = t.run(state)
+            wall = time.perf_counter() - t0
+            launches = {k: c.count for k, c in counters.items()}
+            want = {"flash_attention": 2 * cfg.num_layers * steps,
+                    "flash_attention_bwd": 2 * cfg.num_layers * steps}
+            if any(launches[k] != want.get(k, 0) for k in launches):
+                raise AssertionError(f"15c: launches {launches}, expected "
+                                     f"{want} and nothing else")
+            hist = ref.metrics["loss_history"]
+            first, last = np.mean(hist[:5]), np.mean(hist[-5:])
+            print(f"15c: {steps} steps in {wall:.2f} s (step "
+                  f"{np.mean(ref.metrics['step_seconds'][1:]) * 1e3:.1f} ms "
+                  f"mean after the first); loss first 5 mean {first:.4f}, last"
+                  f" 5 mean {last:.4f} (ratio {last / first:.4f}, limit 0.9)",
+                  flush=True)
+            if not last < 0.9 * first:
+                raise AssertionError("15c: the loss did not fall by 10%")
+            t1 = trainer("run", preempt_at_step=preempt)
+            try:
+                t1.run(t1.init_state())
+                raise AssertionError("15c: no preemption")
+            except PreemptionError:
+                pass
+            logs = []
+            resumed = trainer("run").run(log=logs.append)
+            same = resumed.metrics["loss_history"] == hist[preempt:] and all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+                    tree_leaves((resumed.params, resumed.opt_state)),
+                    tree_leaves((ref.params, ref.opt_state))))
+            print(f"15c: preempted at step {preempt} (checkpoints every "
+                  f"{every}), {logs[0]!r}; the resumed run's parameters, "
+                  f"moments and last {steps - preempt} losses equal the "
+                  f"uninterrupted run's bit for bit: {same}", flush=True)
+            if not same:
+                raise AssertionError("15c: the resumed run differs from the "
+                                     "uninterrupted one")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2860,6 +3255,10 @@ def main() -> int:
 
     import os
 
+    # cuBLAS is deterministic on one stream only with this workspace
+    # setting, which must be in place before CUDA starts: phase 15c
+    # trains under torch.use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2896,6 +3295,7 @@ def main() -> int:
                 "vqs_bf": vqs_bf_kernel.launches,
                 "decode_attention": da.launches,
                 "flash_attention": fa.launches,
+                "flash_attention_bwd": fa.bwd_launches,
                 "ssd_scan": sk.launches,
                 "live_admission": lk.launches}
 
@@ -3375,10 +3775,33 @@ def main() -> int:
     rows["flash_attention"].update(fl)
     clock.done("14c attention kernels at the new shapes")
 
+    # -- 15. training on one device: the flash backward kernel, llama3-8b
+    # at full width (4 layers) trained and served, the 10M model's loss
+    # and a bit-identical resume
+    t15 = time.perf_counter()
+    rows["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:21 "
+                 "(its backward: JAX differentiates chunked_attention, "
+                 "src/repro/models/attention.py:71, with XLA)",
+        **bwd_phase(dev, args.seed))
+    clock.done("15a flash backward kernel")
+    launches = train_path(dev, args.seed, counters, reset_counters)
+    rows["flash_attention_bwd"]["launches"] = launches["flash_attention_bwd"]
+    rows["flash_attention"]["launches_phase_15b"] = \
+        launches["flash_attention"]
+    clock.done("15b llama3-8b training path")
+    launches = small_path(dev, counters, reset_counters)
+    rows["flash_attention_bwd"]["launches_phase_15c"] = \
+        launches["flash_attention_bwd"]
+    clock.done("15c 10M model trained, preempted and resumed")
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
     print(f"chip_smoke: all phases passed in {clock.total():.1f} s")
     order = ("bfjs", "vqs", "vqs_bf", "bfjs_mr", "best_fit",
-             "decode_attention", "flash_attention", "ssd_scan",
-             "live_admission")
+             "decode_attention", "flash_attention", "flash_attention_bwd",
+             "ssd_scan", "live_admission")
     print(json.dumps({"kernels": [rows[k] for k in order], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

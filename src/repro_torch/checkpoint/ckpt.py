@@ -9,6 +9,10 @@ other's checkpoints:
     tree joined with ``/`` (``state/0``, ``partial/queue_len``): dict keys
     (sorted, as JAX flattens them), NamedTuple field names, tuple and list
     indices; ``None`` leaves are left out;
+  * a bfloat16 leaf (numpy has no such type) is stored as its bits, a
+    ``uint16`` array, and named in the manifest's ``dtypes``; restore
+    views it back.  JAX writes such a leaf as numpy's ``|V2`` and cannot
+    restore it (a difference by design: PERF.md, reference quirks);
   * writes go to ``step_<N>.tmp`` then rename (atomic on POSIX);
   * :class:`AsyncCheckpointer` copies to the host on the caller thread and
     writes in a background thread;
@@ -75,20 +79,45 @@ def _map_with_path(fn: Callable[[str, Any], Any], tree, path=()):
     return fn(SEP.join(path), tree)
 
 
+#: Tensor dtypes numpy cannot hold, stored as the bits of an integer of
+#: their width and named in the manifest's ``dtypes``.
+_AS_BITS = {torch.bfloat16: (torch.int16, np.uint16)}
+
+
 def _to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
+def _stored(x) -> np.ndarray:
+    """The leaf as it is stored: a dtype of :data:`_AS_BITS` as its bits."""
+    if isinstance(x, torch.Tensor) and x.dtype in _AS_BITS:
+        signed, bits = _AS_BITS[x.dtype]
+        return x.detach().cpu().view(signed).numpy().view(bits)
+    return _to_numpy(x)
+
+
 def _flatten(tree) -> dict[str, np.ndarray]:
     flat: dict[str, np.ndarray] = {}
 
     def put(key, leaf):
-        flat[key] = _to_numpy(leaf)
+        flat[key] = _stored(leaf)
 
     _map_with_path(put, tree)
     return flat
+
+
+def _bits_dtypes(tree) -> dict[str, str]:
+    """The dtype names of the leaves stored as bits, by path."""
+    dtypes: dict[str, str] = {}
+
+    def put(key, leaf):
+        if isinstance(leaf, torch.Tensor) and leaf.dtype in _AS_BITS:
+            dtypes[key] = str(leaf.dtype).removeprefix("torch.")
+
+    _map_with_path(put, tree)
+    return dtypes
 
 
 def save(directory: str, step: int, state: Any, extra: dict | None = None
@@ -97,7 +126,7 @@ def save(directory: str, step: int, state: Any, extra: dict | None = None
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    flat = _flatten(state)
+    flat, dtypes = _flatten(state), _bits_dtypes(state)
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     manifest = {
         "step": step,
@@ -107,6 +136,8 @@ def save(directory: str, step: int, state: Any, extra: dict | None = None
         "arrays_sha256": _sha256_file(os.path.join(tmp, "arrays.npz")),
         "extra": extra or {},
     }
+    if dtypes:
+        manifest["dtypes"] = dtypes
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     if os.path.exists(final):
@@ -115,12 +146,12 @@ def save(directory: str, step: int, state: Any, extra: dict | None = None
     return final
 
 
-def _host_copy(_key, x) -> np.ndarray:
+def _host_copy(_key, x):
     # a copy, never a view: on the CPU ``tensor.numpy()`` shares memory,
     # and an engine writing its carry in place would tear the bytes the
     # background thread is writing
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        return x.detach().to("cpu", copy=True)
     return np.array(x, copy=True)
 
 
@@ -234,9 +265,11 @@ def latest_valid_step(directory: str) -> tuple[int | None, list[int]]:
 def restore(directory: str, step: int, like: Any, device=None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors or
     arrays; only its structure and leaf devices are read).  Leaves come
-    back as tensors with the stored dtypes, on ``device`` when given, else
-    on the device of the matching ``like`` leaf (the CPU for arrays)."""
+    back as tensors with the stored dtypes (a leaf stored as bits with the
+    dtype its manifest names), on ``device`` when given, else on the
+    device of the matching ``like`` leaf (the CPU for arrays)."""
     data = load_arrays(directory, step)
+    dtypes = read_manifest(directory, step).get("dtypes", {})
     keys: list[str] = []
     _map_with_path(lambda key, _leaf: keys.append(key), like)
     missing = set(keys) - set(data)
@@ -246,7 +279,14 @@ def restore(directory: str, step: int, like: Any, device=None) -> Any:
     def place(key, leaf):
         dev = device if device is not None else (
             leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
-        return torch.from_numpy(data[key]).to(dev)
+        x = data[key]
+        if key in dtypes:
+            dt = getattr(torch, dtypes[key])
+            signed = _AS_BITS[dt][0]
+            x = torch.from_numpy(x.view(str(signed).removeprefix(
+                "torch."))).view(dt)
+            return x.to(dev)
+        return torch.from_numpy(x).to(dev)
 
     return _map_with_path(place, like)
 

@@ -1,3 +1,5 @@
-from .registry import ARCH_IDS, get_config, get_smoke_config
+from .registry import (ARCH_IDS, applicable_shapes, get_config,
+                       get_shape, get_smoke_config)
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "applicable_shapes", "get_config", "get_shape",
+           "get_smoke_config"]

@@ -1,12 +1,15 @@
 """Architecture registry of the port (``repro.configs.registry``'s
-``--arch`` resolution): the JAX registry's ten ids, each a copy of its
-config module.  An id the registry does not know raises ``KeyError``.
+``--arch`` resolution and shape applicability): the JAX registry's ten
+ids, each a copy of its config module.  An id the registry does not know
+raises ``KeyError``.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import (ALL_SHAPES, DECODE_32K, LONG_500K,
+                                       PREFILL_32K, TRAIN_4K, ModelConfig,
+                                       ShapeConfig)
 
 _MODULES = {
     "mamba2-130m": "mamba2_130m",
@@ -21,6 +24,8 @@ _MODULES = {
     "musicgen-medium": "musicgen_medium",
 }
 ARCH_IDS = tuple(_MODULES)
+
+_SHAPES = {s.name: s for s in ALL_SHAPES}
 
 
 def _module(arch_id: str):
@@ -37,3 +42,18 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
 
 
+def get_shape(name: str) -> ShapeConfig:
+    return _SHAPES[name]
+
+
+def supports_long_context(cfg: ModelConfig) -> bool:
+    """long_500k needs sub-quadratic attention: SSM/hybrid stacks or SWA.
+    Pure full-attention archs skip it (documented in DESIGN.md)."""
+    return cfg.family in ("ssm", "hybrid") or cfg.sliding_window > 0
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if supports_long_context(cfg):
+        shapes.append(LONG_500K)
+    return shapes

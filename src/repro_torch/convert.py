@@ -1,6 +1,6 @@
-"""Carry streams, scan state, results, model parameters and decode caches
-(KV, MLA and Mamba, in any mix) between the JAX package and the port as
-numpy arrays.
+"""Carry streams, scan state, results, model parameters, training state
+and decode caches (KV, MLA and Mamba, in any mix) between the JAX package
+and the port as numpy arrays.
 
 The two packages draw different random numbers from the same seed, so a
 parity check generates its inputs once (with either package), hands them
@@ -22,6 +22,7 @@ from .models.layers import cdtype
 from .models.mamba2 import FLOAT32_PARAMS, MambaCache
 from .models.mla import MLACache
 from .models.model import layer_descs
+from .train.optimizer import AdamWState
 
 _STATE_DTYPES = (torch.float32, torch.int32, torch.float32, torch.int32,
                  torch.int32, torch.int32, torch.int32, torch.int32,
@@ -100,24 +101,10 @@ def result_to_numpy(res: PolicyResult) -> PolicyResult:
                           for x in res))
 
 
-def model_params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
-    """The port's parameter dictionary from the JAX ``init_params`` pytree as
-    numpy (e.g. ``jax.tree.map(np.asarray, params)``).  The JAX layer leaves
-    are stacked over periods under ``layers/p{p}``; layer ``l`` is period
-    ``l // period`` at position ``p = l % period``.  Norm scales and the
-    Mamba parameters the JAX package uses in float32
-    (``mamba2.FLOAT32_PARAMS``: ``A_log``, ``D_skip``, ``dt_bias``,
-    ``norm_scale``) stay float32; every other leaf is cast to
-    ``cfg.dtype``, the cast the JAX package applies at use."""
-    device = resolve_device(device)
-    dt = cdtype(cfg)
-    keep = ("scale", *FLOAT32_PARAMS)
-
-    def leaf(name, x):
-        x = torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
-        return x.to(device=device, dtype=torch.float32 if name in keep
-                    else dt)
-
+def _unstack(tree, cfg: ModelConfig, leaf) -> dict:
+    """The port's per-layer dictionary from a JAX tree shaped like
+    ``init_params``'s: ``leaf(name, array)`` makes each tensor, the layer
+    leaves taken from their period's slice."""
     def convert(node, pick=None):
         return {name: convert(x, pick) if isinstance(x, dict)
                 else leaf(name, x if pick is None else np.asarray(x)[pick])
@@ -129,6 +116,74 @@ def model_params_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
     out["layers"] = [convert(tree["layers"][f"p{l % period}"], l // period)
                      for l in range(cfg.num_layers)]
     return out
+
+
+def model_params_from_numpy(tree, cfg: ModelConfig, device=None,
+                            param_dtype: torch.dtype | None = None) -> dict:
+    """The port's parameter dictionary from the JAX ``init_params`` pytree as
+    numpy (e.g. ``jax.tree.map(np.asarray, params)``).  The JAX layer leaves
+    are stacked over periods under ``layers/p{p}``; layer ``l`` is period
+    ``l // period`` at position ``p = l % period``.  Norm scales and the
+    Mamba parameters the JAX package uses in float32
+    (``mamba2.FLOAT32_PARAMS``: ``A_log``, ``D_skip``, ``dt_bias``,
+    ``norm_scale``) stay float32; every other leaf is cast to
+    ``param_dtype``: ``cfg.dtype`` when None (serving; the cast the JAX
+    package applies at use), ``torch.float32`` to keep JAX's masters
+    (training)."""
+    device = resolve_device(device)
+    dt = param_dtype or cdtype(cfg)
+    keep = ("scale", *FLOAT32_PARAMS)
+
+    def leaf(name, x):
+        x = torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
+        return x.to(device=device, dtype=torch.float32 if name in keep
+                    else dt)
+    return _unstack(tree, cfg, leaf)
+
+
+def model_params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
+    """The JAX ``init_params`` layout as float32 numpy from a tree of the
+    port's parameter layout (parameters, gradients, AdamW moments): each
+    period position's layers stacked under ``layers/p{p}``."""
+    def convert(node):
+        return {k: convert(v) if isinstance(v, dict)
+                else v.detach().float().cpu().numpy()
+                for k, v in node.items()}
+
+    def stack(nodes):
+        return {k: stack([n[k] for n in nodes]) if isinstance(v, dict)
+                else np.stack([n[k] for n in nodes])
+                for k, v in nodes[0].items()}
+
+    out = {name: convert(node) for name, node in params.items()
+           if name != "layers"}
+    layers = [convert(p) for p in params["layers"]]
+    out["layers"] = {f"p{p}": stack(layers[p::cfg.period])
+                     for p in range(cfg.period)}
+    return out
+
+
+def train_state_from_numpy(params_tree, adamw_state, cfg: ModelConfig,
+                           device=None):
+    """``(params, AdamWState)`` for the port's trainer from a JAX
+    ``TrainState``'s params and ``AdamWState`` (``step``, ``mu``, ``nu``)
+    as numpy: float32 masters, each moment in its own dtype (float32, or
+    bfloat16 under ``moment_dtype="bfloat16"``), the step an int32 scalar,
+    all on ``device``."""
+    device = resolve_device(device)
+
+    def moment(_name, x):
+        x = np.asarray(x)
+        dt = torch.bfloat16 if str(x.dtype) == "bfloat16" else torch.float32
+        return torch.from_numpy(x.astype(np.float32)).to(device=device,
+                                                         dtype=dt)
+
+    params = model_params_from_numpy(params_tree, cfg, device,
+                                     param_dtype=torch.float32)
+    step = torch.tensor(int(np.asarray(adamw_state.step)), dtype=torch.int32,
+                        device=device)
+    return params, AdamWState(step, _unstack(adamw_state.mu, cfg, moment),
+                              _unstack(adamw_state.nu, cfg, moment))
 
 
 def caches_from_numpy(tree, cfg: ModelConfig, device=None) -> list:

@@ -47,6 +47,20 @@ class LaunchCounter:
             self.count = 0
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when a kernel without a backward is asked
+    for a graph: grad mode is on and an input requires a gradient.  The
+    launch writes its output through raw pointers, so it would carry no
+    gradient and nothing downstream would say so.  ``what`` names the
+    kernel, the missing backward and where to run instead."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}; its output would carry no gradient. "
+                           "Call it under torch.no_grad() or on detached "
+                           "inputs")
+
+
 def cuda_precheck(kernel: str, *, nbytes: int, fault_plane: bool = False,
                   strict: bool = False) -> bool:
     """Gate an ``engine="cuda"`` dispatch.

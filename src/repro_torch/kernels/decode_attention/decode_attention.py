@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import build
-from ..common import SMEM_LIMIT_BYTES, LaunchCounter
+from ..common import SMEM_LIMIT_BYTES, LaunchCounter, refuse_grad
 from .ref import decode_attention_ref, row_positions
 
 launches = LaunchCounter()
@@ -77,6 +77,8 @@ def decode_attention_cuda(q, k, v, pos, *, window: int = 0) -> torch.Tensor:
     check_inputs(q, k, v)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos, window=window)
+    refuse_grad("decode_attention has no backward kernel (serving never "
+                "differentiates it)", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention kernel runs on CUDA tensors, got "
                          f"{q.device}")

@@ -1,9 +1,13 @@
-"""ctypes wrapper of the flash-attention kernel
-(``csrc/flash_attention.cu``).
+"""ctypes wrappers of the flash-attention kernels: the forward
+(``csrc/flash_attention.cu``) and its backward
+(``csrc/flash_attention_bwd.cu``).
 
-For CUDA tensors :func:`flash_attention_cuda` launches the kernel (or
-raises); for CPU tensors it runs the plain version, ``ref.attention_ref``.
-``launches`` counts kernel launches only.
+For CUDA tensors :func:`flash_attention_cuda` launches the forward kernel
+(or raises) inside a ``torch.autograd.Function`` whose backward launches
+the two backward kernels (:func:`flash_attention_bwd_cuda`); for CPU
+tensors it runs the plain version, ``ref.attention_ref``, under native
+autograd.  ``launches`` counts forward launches only, ``bwd_launches``
+backward launches (two a call: dq, then dk and dv).
 
 Which instance a CUDA call runs is a dispatch on dtype and width
 (:func:`instance`): bf16 with hd <= 128 always runs the tensor-core
@@ -22,6 +26,7 @@ from ..common import LaunchCounter
 from .ref import attention_ref
 
 launches = LaunchCounter()
+bwd_launches = LaunchCounter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DTYPES = (torch.float32, torch.bfloat16)
@@ -41,6 +46,19 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_tc_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I,
                                               _I, _I, _I, _P, _I, _I,
                                               ctypes.c_float, _P]
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    lib.flash_attention_bwd_dq_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_dq_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, _I, _P]
+    lib.flash_attention_bwd_dkv_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_dkv_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, _I, _P]
     return lib
 
 
@@ -126,19 +144,8 @@ def _cuda_core(lib, q, k, v, causal: bool, window: int):
     return out
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
-    """Causal / sliding-window GQA forward: q (B, H, Sq, hd), k
-    (B, KV, Sk, hd) and v (B, KV, Sk, hd_v), hd_v <= hd -> (B, H, Sq, hd_v)
-    in q's dtype.  On CUDA, bf16 with hd <= 128 runs the tensor-core
-    instance and returns a tensor with q's strides (so the model's
-    (B, S, H, hd) views need no copy in or out); float32 and wider heads
-    run the CUDA-core instance.  A narrower v (MLA's) is zero-padded to hd
-    and the output sliced back: the zero columns add nothing to any
-    p @ v."""
-    check_inputs(q, k, v)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """One forward launch on CUDA tensors (inputs checked)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel runs on CUDA tensors, got "
                          f"{q.device}")
@@ -158,3 +165,103 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         out = run(lib, q, k, v, causal, window)
     launches.add()
     return out[..., :hd_v]
+
+
+def every_row_sees_a_key(Sq: int, Sk: int, window: int) -> bool:
+    """Whether each of Sq query rows has a visible key among Sk (causal or
+    not): always without a window; with one, the last row Sq - 1 must lie
+    within ``window`` of the last key (row i sees key j > i - window)."""
+    return Sk > 0 and (not window or Sq < Sk + window)
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, *, causal: bool = True,
+                             window: int = 0):
+    """The gradients (dq, dk, dv) of the attention ``out`` = attention(q, k,
+    v) for the output cotangent ``dout``, on CUDA tensors (layouts of
+    :func:`flash_attention_cuda`; out and dout (B, H, Sq, hd_v)), each in
+    its input's dtype.  Two launches: dq, with each row's log-sum-exp and
+    D = rowsum(dout * out) into float32 scratch, then dk and dv from them.
+    The plain version is ``ref.attention_bwd_ref``."""
+    check_inputs(q, k, v)
+    B, H, Sq, hd = q.shape
+    KV, Sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    if out.shape != (B, H, Sq, hd_v) or dout.shape != out.shape:
+        raise ValueError(f"out and dout must be {(B, H, Sq, hd_v)}, got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}")
+    if hd > MAX_HEAD_DIM:
+        raise NotImplementedError(f"flash_attention backward kernels take "
+                                  f"hd <= {MAX_HEAD_DIM}, got {hd}")
+    if max(B * H, B * KV) > 65535:
+        raise NotImplementedError(f"flash_attention backward kernels take B "
+                                  f"* H <= 65535, got {B * H}")
+    if not every_row_sees_a_key(Sq, Sk, window):
+        raise NotImplementedError(
+            f"flash_attention backward kernels need a visible key for every "
+            f"query row (Sq={Sq}, Sk={Sk}, window={window})")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention backward kernels run on CUDA "
+                         f"tensors, got {q.device}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = out.to(q.dtype).contiguous()
+    dout = dout.to(q.dtype).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib = _bwd_lib()
+    args = (B, H, KV, Sq, Sk, hd, hd_v, int(causal), int(window),
+            float(hd**-0.5), int(q.dtype == torch.bfloat16))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *args, stream)
+        build.check(lib, err, "flash_attention backward dq kernel launch")
+        bwd_launches.add()
+        err = lib.flash_attention_bwd_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *args, stream)
+        build.check(lib, err, "flash_attention backward dkv kernel launch")
+        bwd_launches.add()
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash forward kernel with the hand-written backward: forward
+    saves q, k, v and the output; backward launches
+    :func:`flash_attention_bwd_cuda`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, out, dout, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """Causal / sliding-window GQA forward: q (B, H, Sq, hd), k
+    (B, KV, Sk, hd) and v (B, KV, Sk, hd_v), hd_v <= hd -> (B, H, Sq, hd_v)
+    in q's dtype.  On CUDA, bf16 with hd <= 128 runs the tensor-core
+    instance and returns a tensor with q's strides (so the model's
+    (B, S, H, hd) views need no copy in or out); float32 and wider heads
+    run the CUDA-core instance.  A narrower v (MLA's) is zero-padded to hd
+    and the output sliced back: the zero columns add nothing to any
+    p @ v.  Differentiable on either device: through :class:`FlashAttention`
+    (the backward kernels) on CUDA, native autograd of the plain version
+    on the CPU."""
+    check_inputs(q, k, v)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    return FlashAttention.apply(q, k, v, causal, window)

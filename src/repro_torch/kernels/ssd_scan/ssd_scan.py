@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import build
-from ..common import LaunchCounter
+from ..common import LaunchCounter, refuse_grad
 from .ref import ssd_ref
 
 launches = LaunchCounter()
@@ -132,7 +132,13 @@ def _check_stage(xdt, Bm, Cm, a) -> None:
                          f"{MAX_CHUNK}, got hd={hd}, N={N}, Lc={xdt.shape[3]}")
 
 
-def _check_cuda(t: torch.Tensor) -> None:
+#: Why a CUDA call refuses grad (``common.refuse_grad``).
+NO_BACKWARD = ("the ssd_scan kernels have no backward yet (ROADMAP item "
+               "11j): Mamba2 and Jamba train on the CPU only until then")
+
+
+def _check_cuda(t: torch.Tensor, *inputs) -> None:
+    refuse_grad(NO_BACKWARD, t, *inputs)
     if t.device.type != "cuda":
         raise ValueError(f"the stage kernels run on CUDA tensors, got "
                          f"{t.device}")
@@ -142,7 +148,7 @@ def chunk_states_cuda(xdt, Bm, a):
     """Stage 1: the chunk states (B, H, nc, hd, N) and the chunks' totals
     of a (B, H, nc), float32; a block per (b, h, c)."""
     _check_stage(xdt, Bm, Bm, a)
-    _check_cuda(xdt)
+    _check_cuda(xdt, Bm, a)
     B, H, nc, Lc, hd = xdt.shape
     G, N = Bm.shape[1], Bm.shape[-1]
     x, b = operand(xdt, hd), operand(Bm, N)
@@ -173,7 +179,7 @@ def state_pass_cuda(states, totals):
         raise ValueError("state pass takes contiguous float32 states (B, H, "
                          "nc, hd, N), hd * N a multiple of 4, and totals "
                          "(B, H, nc) on their device")
-    _check_cuda(states)
+    _check_cuda(states, totals)
     tot = totals.contiguous()
     lib = _lib()
     with torch.cuda.device(states.device):
@@ -204,7 +210,7 @@ def chunk_scan_cuda(xdt, Bm, Cm, a, starts, out=None):
             any(s % 2 for s in strides(out)):
         raise ValueError("chunk scan writes a float32 out shaped like xdt, "
                          "hd contiguous, rows 8-byte aligned")
-    _check_cuda(xdt)
+    _check_cuda(xdt, Bm, Cm, a, starts)
     x, b, c = operand(xdt, hd), operand(Bm, N), operand(Cm, N)
     lib = _lib()
     st = (ctypes.c_longlong * 20)(*(strides(x) + strides(b) + strides(c)
@@ -230,6 +236,7 @@ def ssd_scan_cuda(xdt, Bm, Cm, a) -> torch.Tensor:
     check_inputs(xdt, Bm, Cm, a)
     if xdt.device.type == "cpu":
         return ssd_ref(xdt, Bm, Cm, a)
+    refuse_grad(NO_BACKWARD, xdt, Bm, Cm, a)
     B, H, nc, Lc, hd = xdt.shape
     N = Bm.shape[-1]
     if hd > MAX_HEAD_DIM or N > MAX_STATE or Lc > MAX_CHUNK:

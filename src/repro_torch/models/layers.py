@@ -2,8 +2,9 @@
 ``repro.models.layers``).  Plain functions over parameter dictionaries.
 
 The rounding points are the JAX package's: a parameter is cast to
-``cfg.dtype`` where it is used (the port stores matrices in ``cfg.dtype``
-already, so the cast is free and the values are the same), ``rms_norm``
+``cfg.dtype`` where it is used (for serving the port stores matrices in
+``cfg.dtype`` already, so the cast is free and the values are the same;
+training keeps float32 masters, as JAX does), ``rms_norm``
 and RoPE compute in float32 and cast back, and logits are float32 when
 ``cfg.logits_fp32``.  Large products are ``torch.matmul``, as the JAX
 package leaves them to XLA.
@@ -80,6 +81,20 @@ def head_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     w = params["embed"]["w"].T if cfg.tie_embeddings else params["head"]["w"]
     logits = x @ w.to(x.dtype)
     return logits.float() if cfg.logits_fp32 else logits
+
+
+# -- losses ---------------------------------------------------------------------
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits (B, S, V), labels (B, S) int.  With
+    a mask, the mean over the masked-in tokens, the count floored at 1."""
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 # -- RoPE ----------------------------------------------------------------------

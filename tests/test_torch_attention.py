@@ -28,8 +28,8 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import \
     flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import \
-    attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_bwd_ref, attention_ref)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -290,3 +290,86 @@ def test_ring_decode_equals_the_linear_window(C, window):
     # window must be cut to C to see the same entries
     ref = decode_attention_ref(q, lin_k, lin_v, p, window=min(C, window))
     torch.testing.assert_close(got, ref, atol=2e-6, rtol=2e-6)
+
+
+# (B, H, KV, Sq, hd, hd_v, causal, window): causal and windowed, GQA and
+# MHA, MLA's hd_v < hd, a window past the sequence, not causal
+BWD_CASES = [(2, 4, 2, 48, 16, 16, True, 0),
+             (1, 4, 1, 40, 16, 16, True, 12),
+             (2, 4, 4, 32, 24, 16, True, 0),
+             (1, 6, 2, 36, 16, 8, True, 7),
+             (1, 2, 1, 24, 16, 16, False, 0),
+             (1, 2, 2, 24, 8, 8, True, 100)]
+
+
+def _bwd_inputs(seed, B, H, KV, S, hd, hd_v):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd_v),
+                      (B, H, S, hd_v))]
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,hd_v,causal,window", BWD_CASES)
+def test_attention_bwd_ref_equals_autograd(B, H, KV, S, hd, hd_v, causal,
+                                           window):
+    """The backward's plain version (explicit formulas, one (batch row, KV
+    head) at a time) against torch autograd of ``attention_ref`` and of
+    the entry point on CPU tensors, in float32."""
+    q, k, v, dout = _bwd_inputs(0, B, H, KV, S, hd, hd_v)
+    out = attention_ref(q, k, v, causal=causal, window=window)
+    got = attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window)
+    for fn in (attention_ref, attention):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        fn(*leaves, causal=causal, window=window).backward(dout)
+        for g, leaf in zip(got, leaves):
+            assert g.shape == leaf.shape and g.dtype == leaf.dtype
+            torch.testing.assert_close(g, leaf.grad, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,hd_v,causal,window",
+                         [c for c in BWD_CASES if c[6]])
+def test_attention_bwd_ref_equals_jax_vjp(B, H, KV, S, hd, hd_v, causal,
+                                          window):
+    """Against ``jax.vjp`` of JAX's ``chunked_attention`` (the attention JAX
+    trains through), K and V expanded to H heads as JAX's ``attn_apply``
+    does, whose cotangents are summed back over each KV head's group:
+    within 1e-5 of each gradient's max in float32."""
+    from repro.models.attention import chunked_attention
+    q, k, v, dout = _bwd_inputs(1, B, H, KV, S, hd, hd_v)
+    G = H // KV
+
+    def jax_attention(q, k, v):
+        k = jnp.repeat(k, G, axis=2)
+        v = jnp.repeat(v, G, axis=2)
+        return chunked_attention(q, k, v, causal=True, window=window,
+                                 q_chunk=4, kv_chunk=4)
+    layout = [jnp.asarray(x.transpose(1, 2).numpy()) for x in (q, k, v)]
+    out, vjp = jax.vjp(jax_attention, *layout)
+    ref = vjp(jnp.asarray(dout.transpose(1, 2).numpy()))
+    got = attention_bwd_ref(q, k, v, torch.from_numpy(
+        np.asarray(out).transpose(0, 2, 1, 3).copy()), dout, causal=True,
+        window=window)
+    for g, r in zip(got, ref):
+        r = np.asarray(r).transpose(0, 2, 1, 3)
+        assert g.shape == r.shape
+        assert np.abs(g.numpy() - r).max() <= 1e-5 * np.abs(r).max()
+
+
+def test_flash_backward_wrapper_checks_its_inputs():
+    """The backward wrapper refuses what its kernels cannot take before
+    any launch: a row with no visible key, and CPU tensors (the plain
+    version serves them through autograd)."""
+    q, k, v, dout = _bwd_inputs(2, 1, 2, 1, 8, 16, 16)
+    out = attention_ref(q, k, v)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, dout)
+    with pytest.raises(ValueError, match="out and dout"):
+        fa.flash_attention_bwd_cuda(q, k, v, out[..., :8], dout)
+    assert fa.every_row_sees_a_key(8, 8, 3)
+    assert not fa.every_row_sees_a_key(20, 8, 3)
+    assert fa.every_row_sees_a_key(20, 8, 0)
+    meta = [x.to("meta") for x in (q[:, :, :20], k, v, out, dout)]
+    meta[0] = torch.empty(1, 2, 20, 16, device="meta")
+    meta[3] = meta[4] = torch.empty(1, 2, 20, 16, device="meta")
+    with pytest.raises(NotImplementedError, match="visible key"):
+        fa.flash_attention_bwd_cuda(*meta, causal=False, window=3)

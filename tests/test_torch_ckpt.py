@@ -224,3 +224,39 @@ def test_directories_cross_between_the_packages(tmp_path):
         ckpt.read_manifest(p_dir, 2))
     assert ckpt.latest_valid_step(j_dir) == (2, [])
     assert j_ckpt.latest_valid_step(p_dir) == (2, [])
+
+
+def test_bf16_leaves_round_trip_with_their_dtype(tmp_path):
+    """A bfloat16 leaf (AdamW's bf16 moments) is stored as its bits, a
+    uint16 array named ``bfloat16`` in the manifest's ``dtypes``, and
+    restores bit for bit as bfloat16, through the blocking save and the
+    background writer alike.  A tree without one writes no ``dtypes``."""
+    rng = np.random.default_rng(5)
+    tree = {"mu": torch.from_numpy(rng.standard_normal((5, 3)).astype(
+        np.float32)).to(torch.bfloat16),
+        "p": torch.from_numpy(rng.standard_normal(4).astype(np.float32)),
+        "step": torch.tensor(3, dtype=torch.int32)}
+    ckpt.save(str(tmp_path), 1, tree)
+    man = ckpt.read_manifest(str(tmp_path), 1)
+    assert man["dtypes"] == {"mu": "bfloat16"}
+    assert ckpt.load_arrays(str(tmp_path), 1)["mu"].dtype == np.uint16
+    cp = ckpt.AsyncCheckpointer(str(tmp_path))
+    cp.save(2, tree)
+    cp.wait()
+    for step in (1, 2):
+        out = ckpt.restore(str(tmp_path), step, tree)
+        for k in tree:
+            assert out[k].dtype == tree[k].dtype, k
+            assert torch.equal(out[k], tree[k]), k
+    ckpt.save(str(tmp_path), 3, {"p": tree["p"]})
+    assert "dtypes" not in ckpt.read_manifest(str(tmp_path), 3)
+
+
+def test_jax_cannot_restore_its_own_bf16_leaf(tmp_path):
+    """The reference quirk the port does not copy: JAX writes a bf16 leaf
+    as numpy's void ``|V2`` and its restore refuses it."""
+    import jax
+    j_ckpt.save(str(tmp_path), 1, {"m": jnp.ones((2, 3), jnp.bfloat16)})
+    with pytest.raises(TypeError, match="V2"):
+        j_ckpt.restore(str(tmp_path), 1,
+                       {"m": jax.ShapeDtypeStruct((2, 3), jnp.bfloat16)})

@@ -1389,3 +1389,168 @@ def test_sharded_cuda_run_on_a_repeated_card_equals_unsharded(cuda, policy):
             assert (a is None) == (b is None), f
             if a is not None:
                 assert torch.equal(a, b), (k, f)
+
+
+# ---------------------------------------------------------------------------
+# the flash backward (csrc/flash_attention_bwd.cu) and training on the card
+# ---------------------------------------------------------------------------
+#: chip_smoke.BWD_TOL's limits (readings in PERF.md): the largest over dq,
+#: dk and dv of max |diff| / max |ref| of a row against the float32 plain
+#: gradients of the same inputs.
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+
+BWD_CASES = [
+    # (B, H, KV, S, hd, hd_v, causal, window, dtype): chip_smoke's 15a
+    # shapes (llama3-8b's microbatch, the 10M model, danube's window,
+    # deepseek's MLA), then ragged lengths, each instance width, no mask,
+    # MHA and GQA, hd_v < hd, a window past the sequence
+    (2, 32, 8, 2048, 128, 128, True, 0, torch.bfloat16),
+    (2, 32, 8, 2048, 128, 128, True, 0, torch.float32),
+    (8, 8, 4, 256, 32, 32, True, 0, torch.bfloat16),
+    (8, 8, 4, 256, 32, 32, True, 0, torch.float32),
+    (1, 32, 8, 8192, 120, 120, True, 4096, torch.bfloat16),
+    (1, 16, 16, 2048, 192, 128, True, 0, torch.bfloat16),
+    (1, 4, 2, 100, 64, 64, True, 0, torch.float32),
+    (1, 4, 2, 130, 64, 64, True, 17, torch.float32),
+    (2, 2, 1, 70, 16, 16, False, 0, torch.float32),
+    (1, 6, 3, 77, 256, 200, True, 0, torch.float32),
+    (1, 4, 4, 97, 192, 128, True, 0, torch.float32),
+    (3, 4, 1, 65, 120, 120, True, 30, torch.bfloat16),
+    (1, 2, 2, 50, 32, 32, False, 9, torch.float32),
+    (1, 2, 1, 40, 64, 64, True, 1000, torch.bfloat16),
+]
+
+
+def _grad_rel(got, ref):
+    """chip_smoke.grad_rel_errs's per-row reading (rows whose reference is
+    zero, a query that sees one key, left out)."""
+    a, b = (x.double().reshape(-1, x.shape[-1]) for x in (got, ref))
+    rows = b.abs().amax(-1) > 1e-6 * b.abs().max()
+    a, b = a[rows], b[rows]
+    return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,hd_v,causal,window,dtype", BWD_CASES)
+def test_flash_backward_kernel_equals_plain(cuda, B, H, KV, S, hd, hd_v,
+                                            causal, window, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+    rng = np.random.default_rng(S + hd)
+    q = _normal(rng, (B, H, S, hd), dtype, cuda)
+    k = _normal(rng, (B, KV, S, hd), dtype, cuda)
+    v = _normal(rng, (B, KV, S, hd_v), dtype, cuda)
+    dout = _normal(rng, (B, H, S, hd_v), dtype, cuda)
+    kw = dict(causal=causal, window=window)
+    out = attention_ref(q, k, v, **kw)
+    fa.bwd_launches.reset()
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches.count == 4
+    ref = attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                            dout.float(), **kw)
+    for g, a, r, x in zip(got, again, ref, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == dtype
+        assert torch.equal(g, a)       # no atomics: the same bits twice
+        assert _grad_rel(g, r) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,window", [(torch.bfloat16, 0),
+                                          (torch.float32, 0),
+                                          (torch.float32, 24)])
+def test_flash_attention_autograd_on_card(cuda, dtype, window):
+    """``ops.attention`` on CUDA tensors that require grad: one forward
+    launch, two backward launches, and exactly the backward kernel's
+    gradients at the forward kernel's output and the cotangent in the
+    inputs' dtype; those within ``BWD_TOL`` of the plain float32
+    gradients at the same output, and in float32 the whole chain within
+    it of the plain version under autograd.  (In bf16 the forward's own
+    rounding of its output enters D = rowsum(dout * out): 15a and the
+    float32 training gate read the backward without it.)"""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+    rng = np.random.default_rng(11)
+    B, H, KV, S, hd = 2, 8, 2, 192, 64
+    # the model's (B, S, H, hd) views, as attn_apply passes them
+    q, k, v = (_normal(rng, (B, S, n, hd), dtype, cuda).transpose(1, 2)
+               for n in (H, KV, KV))
+    dout = _normal(rng, (B, H, S, hd), dtype, cuda)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    fa.launches.reset()
+    fa.bwd_launches.reset()
+    out = attention(*leaves, window=window)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fa.launches.count, fa.bwd_launches.count) == (1, 2)
+    want = fa.flash_attention_bwd_cuda(q, k, v, out.detach(), dout,
+                                       window=window)
+    ref = attention_bwd_ref(q.float(), k.float(), v.float(),
+                            out.detach().float(), dout.float(),
+                            window=window)
+    for a, w, r in zip(leaves, want, ref):
+        assert a.grad is not None and a.grad.dtype == dtype
+        assert torch.equal(a.grad, w)
+        assert _grad_rel(a.grad, r) <= BWD_TOL[dtype]
+    if dtype == torch.float32:
+        plain = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        attention_ref(*plain, window=window).backward(dout)
+        for a, b in zip(leaves, plain):
+            assert _grad_rel(a.grad, b.grad) <= BWD_TOL[dtype]
+    with torch.no_grad():       # no graph: the forward launch alone
+        attention(*leaves, window=window)
+    assert (fa.launches.count, fa.bwd_launches.count) == (2, 4)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v2-lite-16b",
+                                  "h2o-danube-3-4b"])
+def test_loss_gradients_with_kernels_equal_plain_on_card(cuda, arch):
+    """``loss_fn``'s gradients in float32 at smoke size: through the flash
+    kernels (forward, remat's re-run, backward) against the plain
+    attention's, within 1e-4 of each parameter's max."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    params = M.init_params(cfg, 0, cuda, param_dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(cuda),
+        "labels": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(cuda)}
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    grads = {}
+    for use in (True, False):
+        loss, _ = M.loss_fn(params, cfg, batch, use_kernels=use)
+        grads[use] = torch.autograd.grad(loss, leaves)
+    for a, b in zip(grads[True], grads[False]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_trainer_on_card_counts_its_launches(cuda):
+    """Three steps of the smoke llama on the card: per layer and step, one
+    flash forward, its remat re-run and two backward launches; finite
+    falling-or-not losses; no decode or scan kernel.  A Mamba model is
+    refused before its first step (ROADMAP item 11j)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_smoke_config("llama3-8b")
+    tr = Trainer(cfg, TrainerConfig(seq_len=64, global_batch=4,
+                                    microbatches=2, steps=3, ckpt_every=0,
+                                    log_every=100), device=cuda)
+    state = tr.init_state()
+    for c in (fa.launches, fa.bwd_launches, da.launches, sk.launches):
+        c.reset()
+    state = tr.run(state, log=lambda *_: None)
+    n = cfg.num_layers * 2 * 3
+    assert (fa.launches.count, fa.bwd_launches.count) == (2 * n, 2 * n)
+    assert da.launches.count == sk.launches.count == 0
+    assert np.isfinite(state.metrics["loss_history"]).all()
+    with pytest.raises(NotImplementedError, match="11j"):
+        Trainer(get_smoke_config("mamba2-130m"), TrainerConfig(),
+                device=cuda)

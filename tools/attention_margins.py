@@ -4,7 +4,7 @@ kernels and on kernels with a planted fault, to place each limit between
 the two.
 
     python3 tools/attention_margins.py [--seeds 0 1 2]
-        [--faults 1.005 1.01 0.99] [--no-models]
+        [--faults 1.005 1.01 0.99] [--no-models] [--backward]
 
 A planted fault multiplies the softmax scale that the decode_attention and
 flash_attention wrappers hand their kernels by a factor (the launches'
@@ -25,6 +25,20 @@ the first:
 * h2o-danube-3-4b's bf16 ring step at full width, kernels against plain
   (``ring_step`` on ``danube_rings``, held at ``RING_BF16_TOL``).
 
+With ``--backward`` it reads the checks of phase 15 instead, the fault
+planted in the flash backward's launches alone (the forward and decode
+kernels sound):
+
+* each 15a row (``BWD_SHAPES`` at each dtype): the backward kernel
+  against the plain version's float32 gradients, the largest over dq, dk
+  and dv of max |diff| / max |ref| of a row (held at ``BWD_TOL``);
+
+and, unless ``--no-models``, sound on every seed and with each fault on
+the first:
+
+* 15b's gradient gate at llama3-8b's width and ``TRAIN_LAYERS`` layers,
+  in bf16 and float32 (held at ``TRAIN_GRAD_TOL``).
+
 It needs a CUDA device and exits non-zero without one.
 """
 from __future__ import annotations
@@ -40,30 +54,88 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402  (puts src/ on sys.path)
 
 
+class Faulty:
+    """A kernel library whose ``*_launch`` entry points get every float
+    argument (the softmax scale) times ``factor``."""
+
+    def __init__(self, lib, factor: float):
+        self.lib, self.factor = lib, factor
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if not name.endswith("_launch"):
+            return fn
+        return lambda *a: fn(*(x * self.factor if isinstance(x, float)
+                               else x for x in a))
+
+
 @contextlib.contextmanager
 def scale_fault(factor: float):
-    """Inside, every decode_attention and flash_attention launch runs with
-    its softmax scale times ``factor``."""
+    """Inside, every decode_attention and flash_attention forward launch
+    runs with its softmax scale times ``factor``."""
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.flash_attention import flash_attention as fa
-
-    class Faulty:
-        def __init__(self, lib):
-            self.lib = lib
-
-        def __getattr__(self, name):
-            fn = getattr(self.lib, name)
-            if not name.endswith("_launch"):
-                return fn
-            return lambda *a: fn(*(x * factor if isinstance(x, float) else x
-                                   for x in a))
     saved = da._lib, fa._lib
-    da._lib = lambda: Faulty(saved[0]())
-    fa._lib = lambda: Faulty(saved[1]())
+    da._lib = lambda: Faulty(saved[0](), factor)
+    fa._lib = lambda: Faulty(saved[1](), factor)
     try:
         yield
     finally:
         da._lib, fa._lib = saved
+
+
+@contextlib.contextmanager
+def backward_fault(factor: float):
+    """Inside, both flash backward launches run with their softmax scale
+    times ``factor``."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    saved = fa._bwd_lib
+    fa._bwd_lib = lambda: Faulty(saved(), factor)
+    try:
+        yield
+    finally:
+        fa._bwd_lib = saved
+
+
+def backward_rows(dev, seeds, faults) -> None:
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    for tag, shape in cs.BWD_SHAPES.items():
+        window = shape[6]
+        for dtype in shape[-1]:
+            for seed in seeds:
+                inputs = cs.bwd_inputs(dev, seed, tag, getattr(torch, dtype))
+                ref = attention_bwd_ref(*(x.float() for x in inputs),
+                                        causal=True, window=window)
+                cells = []
+                for factor in (1.0, *faults):
+                    with backward_fault(factor):
+                        got = fa.flash_attention_bwd_cuda(
+                            *inputs, causal=True, window=window)
+                    torch.cuda.synchronize()
+                    reads = [cs.grad_rel_errs(a, b) for a, b in zip(got, ref)]
+                    cells.append(f"x{factor:g} " + "/".join(
+                        f"{r[0]:.4g}" for r in reads))
+                    del got
+                del ref, inputs
+                print(f"flash_attention_bwd {tag} {dtype} seed {seed}: max "
+                      f"|diff| / max |ref| of a row, dq/dk/dv, vs float32 "
+                      f"plain: {'; '.join(cells)} [limit "
+                      f"{cs.BWD_TOL[dtype]:g}]", flush=True)
+                torch.cuda.empty_cache()
+
+
+def train_gates(dev, seeds, faults) -> None:
+    import torch
+    for seed in seeds:
+        for factor in (1.0, *(faults if seed == seeds[0] else ())):
+            with backward_fault(factor):
+                reads = cs.train_gates(dev, seed, check=False)[-1]
+            print(f"15b gradient gate seed {seed} x{factor:g}: "
+                  f"{', '.join(f'{k} {v:.4g}' for k, v in reads.items())} "
+                  f"[limits {cs.TRAIN_GRAD_TOL}]", flush=True)
+            torch.cuda.empty_cache()
 
 
 def kernel_rows(dev, seeds, faults) -> None:
@@ -139,6 +211,9 @@ def main() -> int:
     ap.add_argument("--faults", type=float, nargs="+",
                     default=[1.005, 1.01, 0.99])
     ap.add_argument("--no-models", action="store_true")
+    ap.add_argument("--backward", action="store_true",
+                    help="read phase 15's checks, the fault planted in the "
+                         "flash backward")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -147,6 +222,11 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     print(f"card: {cs.gpu_name_and_power_limit()}", flush=True)
+    if args.backward:
+        backward_rows(dev, args.seeds, args.faults)
+        if not args.no_models:
+            train_gates(dev, args.seeds, args.faults)
+        return 0
     kernel_rows(dev, args.seeds, args.faults)
     if not args.no_models:
         deepseek_gates(dev, args.seeds, args.faults)
