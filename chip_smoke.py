@@ -116,20 +116,25 @@ port's paths through the entry points a user calls:
     8192 and one 8192-token prefill.  Then both attention kernels at these
     shapes against their plain versions, with device, bound and SDPA
     times;
-  * training on one device (phase 15): the flash backward kernel
-    (``csrc/flash_attention_bwd.cu``) against its plain version
-    (``attention_bwd_ref``, float32) at ``BWD_SHAPES`` (llama3-8b's
-    microbatch in bf16 and float32, the 10M model, danube's window, MLA's
-    widths), two calls equal bit for bit, timed beside SDPA's forward and
-    backward (15a); llama3-8b at full width (d_model 4096, 32/8 heads,
-    d_ff 14336, vocab 128256), depth cut to ``TRAIN_LAYERS`` = 4 of 32,
+  * training on one device (phase 15): the tensor-core instructions of
+    the flash backward's tensor-core instances, then at ``BWD_SHAPES``
+    (llama3-8b's microbatch in bf16 and float32, the 10M model, danube's
+    window, MLA's widths) the forward kernel's saved log-sum-exp against
+    ``attention_lse_ref`` (``LSE_TOL``) and the backward kernel
+    (``csrc/flash_attention_bwd.cu``) fed it against its plain version
+    (``attention_bwd_ref``, float32), two calls equal bit for bit, each
+    shape naming its instance, timed beside SDPA's backward alone and its
+    forward and backward (15a); llama3-8b at full width (d_model 4096,
+    32/8 heads, d_ff 14336, vocab 128256), depth cut to ``TRAIN_LAYERS`` =
+    4 of 32,
     float32 masters from ``--seed`` and bf16 compute: the gradients
     through the kernels held per parameter to the plain attention's on
     the same card in bf16 and float32, ``Trainer.run`` for 4 steps of 2
     microbatches x 2 x 2048 tokens with every loss finite and exact
     launch counts (per layer and microbatch a flash forward, its remat
-    re-run and two backward launches), a profile of one step, then the
-    trained weights in bf16 served (15b); examples/train_small.py's 10M
+    re-run and two backward launches), a profile of one step with the
+    flash kernels' share, then the trained weights in bf16 served (15b);
+    examples/train_small.py's 10M
     model trained 60 steps (the loss falls by 10%), and a run preempted
     at step 36 and resumed from its step-36 checkpoint equal to the
     uninterrupted one bit for bit, under deterministic algorithms (15c).
@@ -1125,10 +1130,11 @@ def call_site_split(tag: str, prof, unit: str, top: int = 14,
 
 
 def device_split(tag: str, prof, wall_us: float, reps: int,
-                 unit: str) -> None:
+                 unit: str, parts: dict | None = None) -> None:
     """Print the device time of ``reps`` runs of one ``unit`` recorded by
     ``prof`` in a ``wall_us`` window: the busy share, the time per run,
-    the matrix products' share and the ten largest kernels."""
+    the matrix products' share, each of ``parts`` (a label and the
+    substrings of its kernels' names) and the ten largest kernels."""
     import torch
     times: dict[str, float] = {}
     launches = 0
@@ -1149,6 +1155,11 @@ def device_split(tag: str, prof, wall_us: float, reps: int,
                if "nvjet" in name or "gemm" in name.lower())
     print(f"{tag} profile: matrix products (cuBLAS kernels) "
           f"{gemm / reps / 1e3:.3f} ms/{unit} ({gemm / busy:.1%})")
+    for label, keys in (parts or {}).items():
+        us = sum(t for name, t in times.items()
+                 if any(k in name for k in keys))
+        print(f"{tag} profile: {label} {us / reps / 1e3:.3f} ms/{unit} "
+              f"({us / busy:.1%})")
     for name, us in sorted(times.items(), key=lambda kv: -kv[1])[:10]:
         print(f"{tag} profile:  {us / reps / 1e3:8.3f} ms/{unit} "
               f"{us / busy:6.1%}  {name[:90]}")
@@ -2887,21 +2898,40 @@ BWD_SHAPES = {
 #: |diff| / max |ref| of a row (``grad_rel_errs``), the kernel against the
 #: plain version's float32 gradients on the same inputs.  Readings of
 #: tools/attention_margins.py --backward on every shape, seeds 0-2
-#: (PERF.md, section 6): sound bf16 0.00385-0.00389 (one rounding to
-#: bf16), float32 1.8e-6-5.1e-5; with the backward's softmax scale off by
-#: 0.5%, 0.0219 and more in either type (off by 1% either way: 0.0429 and
-#: more).
+#: (PERF.md, section 6): sound bf16 0.0056-0.0076 on the tensor cores (P
+#: and dS rounded to bf16 besides the gradients) and 0.0039 on the CUDA
+#: cores (one rounding), float32 1.8e-6-5.1e-5; with the backward's
+#: softmax scale off by 0.5%, 0.0259 and more in either type and instance
+#: (off by 1% either way: 0.0497 and more).
 BWD_TOL = {"float32": 2e-4, "bfloat16": 1e-2}
 
 #: Limits of 15b's gradient gate at llama3-8b's width (4 layers): per
 #: parameter, max |diff| / max |grad| of the kernel path's gradients
 #: against the plain attention's on the same card.  float32 decides:
 #: sound 1.5e-6-2.2e-6 on seeds 0-2, the backward's scale off by 0.5%
-#: 0.0082, by 1% 0.0164 (tools/attention_margins.py --backward).  bf16 is
-#: a sanity check: four layers of bf16 rounding read 0.020-0.075 with
-#: sound kernels and the same with the faults, while a dropped gradient
-#: reads 1.
+#: 0.0177, by 1% 0.0345 and more (tools/attention_margins.py --backward;
+#: 0.0082 and 0.0164 while the backward recomputed its log-sum-exp at the
+#: faulty scale).  bf16 is a sanity check: four layers of bf16 rounding
+#: read 0.019-0.075 with sound kernels and the same with the faults, while
+#: a dropped gradient reads 1.
 TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 0.15}
+
+#: Limit of 15a's log-sum-exp check: max |lse - plain| (natural log, so
+#: it is the relative error it puts on every P of the row) of the forward
+#: kernel's saved log-sum-exp against ``attention_lse_ref`` on the float32
+#: copies of the same inputs, either instance.  tools/attention_margins.py
+#: --backward, every shape, seeds 0-2 (PERF.md, section 6): sound
+#: 4.8e-7-1.9e-6; with the forward's softmax scale off by 0.5%, 0.0138 and
+#: more.
+LSE_TOL = 1e-4
+
+#: 15a's row keys: ``ROW_KEYS`` (``ms`` eager calls, as SDPA's are timed;
+#: ``library_ms`` SDPA's backward alone, its forward outside the window),
+#: SDPA's forward and backward together, the kernel's device time (a CUDA
+#: graph of calls, no host issue), the log-sum-exp reading and the
+#: instance that ran.
+BWD_ROW_KEYS = ROW_KEYS + ("library_fwd_bwd_ms", "device_ms", "lse_err",
+                           "instance")
 
 #: 15b: llama3-8b's depth cut from 32 layers (1.92 B parameters, ~31 GB
 #: of float32 masters, gradients and moments; all 32 would be ~128 GB).
@@ -2936,6 +2966,20 @@ def bwd_inputs(dev, seed: int, tag: str, dtype):
     return q, k, v, out, dout
 
 
+def kernel_lse(inputs, window: int) -> tuple:
+    """The forward kernel's saved log-sum-exp on ``inputs`` (causal, at
+    ``window``), the instance that wrote it, and its max |diff| from
+    ``attention_lse_ref`` on the float32 copies."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    q, k, v = inputs[:3]
+    _, lse = fa._forward(q, k, v, True, window)
+    _, ref = attention_lse_ref(q.float(), k.float(), v.float(), causal=True,
+                               window=window)
+    return lse, fa.instance(q.dtype, q.shape[3]), float(
+        (lse - ref).abs().max())
+
+
 def bwd_work(inputs, window: int) -> tuple[int, int]:
     """Bytes the backward must move (q, k, v, out and dout read once; dq,
     dk and dv written once) and its products' operations over the visible
@@ -2952,20 +2996,26 @@ def bwd_work(inputs, window: int) -> tuple[int, int]:
 
 
 def bwd_check(tag: str, dtype: str, inputs, window: int) -> dict:
-    """The backward kernel on ``inputs`` against ``attention_bwd_ref`` on
-    their float32 copies (``BWD_TOL``), two calls equal bit for bit; then
-    times the kernel and the plain version (CUDA events after a warm-up)
-    and SDPA's forward and backward at the same mask (the yardstick, never
-    on the path), and takes the bound.  Prints one line; returns the
-    readings and times."""
+    """The forward kernel's log-sum-exp on ``inputs`` against its plain
+    version (``LSE_TOL``); the backward kernel fed it against
+    ``attention_bwd_ref`` on the float32 copies (``BWD_TOL``), two calls
+    equal bit for bit; then times the kernel and the plain version (CUDA
+    events after a warm-up), SDPA's backward alone and its forward and
+    backward at the same mask (the yardsticks, never on the path), and
+    takes the bound.  Prints one line; returns the readings and times."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     q, k, v, out, dout = inputs
     kw = dict(causal=True, window=window)
-    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
-    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    lse, inst, lse_err = kernel_lse(inputs, window)
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash_attention {tag} {dtype} ({inst}): the "
+                             f"saved log-sum-exp is {lse_err:.4g} off the "
+                             f"plain one (limit {LSE_TOL:g})")
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"flash_attention_bwd {tag} {dtype}: two calls "
@@ -2981,7 +3031,9 @@ def bwd_check(tag: str, dtype: str, inputs, window: int) -> dict:
                              f"/ max |ref| of a row {rel:.4g} over "
                              f"{BWD_TOL[dtype]:g}")
     ms = time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, dout,
-                                                     **kw), 3)
+                                                     lse, **kw), 3)
+    dev_ms = device_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, out, dout, lse, **kw), 3)
     plain_ms = time_ms(lambda: attention_bwd_ref(*inputs, **kw), 1)
     S = q.shape[2]
     if window:
@@ -2995,32 +3047,46 @@ def bwd_check(tag: str, dtype: str, inputs, window: int) -> dict:
     def sdpa():
         o = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **mask)
         torch.autograd.grad(o, leaves, dout)
-    lib_ms = time_ms(sdpa, 3)
+    both_ms = time_ms(sdpa, 3)
+    o = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **mask)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, leaves, dout,
+                                                 retain_graph=True), 3)
+    del o
     nbytes, ops = bwd_work(inputs, window)
     b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S
                        if dtype == "bfloat16" else FP32_OPS_PER_S)
     B, H, _, hd = q.shape
     print(f"flash_attention_bwd {tag} B={B} H={H} KV={k.shape[1]} S={S} "
-          f"hd={hd} hd_v={v.shape[3]} window={window} {dtype}: max |diff| / "
-          f"max |ref| of a row (dq, dk, dv) "
+          f"hd={hd} hd_v={v.shape[3]} window={window} {dtype} ({inst} "
+          f"instance): forward log-sum-exp max |diff| {lse_err:.3g} (limit "
+          f"{LSE_TOL:g}); max |diff| / max |ref| of a row (dq, dk, dv) "
           f"{', '.join(f'{r[0]:.4g}' for r in reads)} (limit "
           f"{BWD_TOL[dtype]:g}), over the whole tensor "
           f"{', '.join(f'{r[1]:.4g}' for r in reads)}; max abs err "
           f"{err:.3g}; two calls equal; kernel {ms:.3f} ms ({ops / ms / 1e9:.1f}"
-          f" TFLOP/s), plain {plain_ms:.2f} ms, library (SDPA forward and "
-          f"backward, {'boolean mask' if window else 'is_causal'}) "
-          f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes:.4g} B, "
-          f"{ops:.4g} operations)", flush=True)
+          f" TFLOP/s; device time of a graph of calls {dev_ms:.3f} ms), "
+          f"plain {plain_ms:.2f} ms, library (SDPA, "
+          f"{'boolean mask' if window else 'is_causal'}) backward alone "
+          f"{lib_ms:.3f} ms, forward and backward {both_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}, {nbytes:.4g} B, {ops:.4g} operations)",
+          flush=True)
     return dict(max_abs_err=err, rel=rel, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library_fwd_bwd_ms=both_ms, device_ms=dev_ms, lse_err=lse_err,
+                instance=inst)
 
 
 def bwd_phase(dev, seed: int) -> dict:
-    """15a: the flash backward kernel against its plain version at every
-    ``BWD_SHAPES`` shape and dtype; the row's keys from llama's bf16
-    shape, the others' under suffixed keys (``ms_llama_float32``, ...)."""
+    """15a: the tensor-core instructions of the backward's tensor-core
+    instances, then the flash backward kernel against its plain version
+    at every ``BWD_SHAPES`` shape and dtype; the row's keys from llama's
+    bf16 shape, the others' under suffixed keys (``ms_llama_float32``,
+    ...)."""
     import torch
-    row = {}
+    row = {"tensor_cores": tensor_core_check(
+        "flash_attention_bwd", ("dq_tc_kernel", "dkv_tc_kernel"))}
+    print(f"flash_attention_bwd tensor-core instances: HGMMA/HMMA per "
+          f"instance {row['tensor_cores']}", flush=True)
     for tag, shape in BWD_SHAPES.items():
         for dtype in shape[-1]:
             r = bwd_check(tag, dtype, bwd_inputs(dev, seed, tag,
@@ -3028,9 +3094,10 @@ def bwd_phase(dev, seed: int) -> dict:
                           shape[6])
             torch.cuda.empty_cache()
             if tag == "llama" and dtype == "bfloat16":
-                row.update((k, r[k]) for k in ROW_KEYS)
+                row.update((k, r[k]) for k in BWD_ROW_KEYS)
             else:
-                row.update((f"{k}_{tag}_{dtype}", r[k]) for k in ROW_KEYS)
+                row.update((f"{k}_{tag}_{dtype}", r[k])
+                           for k in BWD_ROW_KEYS)
     return row
 
 
@@ -3151,7 +3218,10 @@ def train_path(dev, seed: int, counters, reset_counters) -> dict:
         trainer.train_step(state.params, state.opt_state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device_split("15b train", prof, wall_us, 1, "step")
+    device_split("15b train", prof, wall_us, 1, "step", parts={
+        "flash forward (with its remat re-run)": ("flash_attention_tc_kernel",
+                                                  "flash_attention_kernel"),
+        "flash backward (dq and dk/dv)": ("bwd_tc::", "bwd::")})
     del prof, batch
     served = cast_params(state.params, torch.bfloat16)
     del state

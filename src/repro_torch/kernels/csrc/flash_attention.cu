@@ -50,6 +50,11 @@
 // -inf, which marks only keys past Sk), l is clamped at 1e-30, and a row
 // whose first processed tile is masked in full adds exp(0) per entry,
 // which the first valid tile's correction erases.
+//
+// Both also write `lse` (B, H, Sq) float32: each row's natural-log
+// log-sum-exp of its scaled, masked scores, m + log(max(l, 1e-30)) by the
+// same rule (-1e30 for a row that sees no key), which the backward
+// (csrc/flash_attention_bwd.cu) reads instead of recomputing it.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,8 +84,9 @@ __host__ __device__ constexpr size_t shared_floats(int HD) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H, int KV, int Sq,
-                       int Sk, int hd, int causal, int window, float scale) {
+                       const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                       int H, int KV, int Sq, int Sk, int hd, int causal, int window,
+                       float scale) {
   extern __shared__ float smem[];
   float* qT = smem;              // qT[d * kQS + r]
   float* kT = qT + HD * kQS;     // kT[d * kKS + c]
@@ -214,6 +220,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (tx == 0) lse[static_cast<size_t>(bh) * Sq + row] = m[i] + logf(denom);
 #pragma unroll
     for (int j = 0; j < kDims; ++j) {
       const int d = tx + 16 * j;
@@ -223,8 +230,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-           int Sq, int Sk, int hd, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
+           int KV, int Sq, int Sk, int hd, int causal, int window, float scale,
+           cudaStream_t stream) {
   const size_t smem = shared_floats(HD) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -233,18 +241,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, KV, Sq, Sk, hd, causal, window, scale);
+      static_cast<T*>(out), lse, H, KV, Sq, Sk, hd, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV,
-             int Sq, int Sk, int hd, int causal, int window, float scale, cudaStream_t s) {
-  if (hd <= 16) return launch<T, 16>(q, k, v, out, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
-  if (hd <= 32) return launch<T, 32>(q, k, v, out, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
-  if (hd <= 64) return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
-  if (hd <= 128) return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
-  if (hd <= 256) return launch<T, 256>(q, k, v, out, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
+int dispatch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
+             int KV, int Sq, int Sk, int hd, int causal, int window, float scale,
+             cudaStream_t s) {
+  if (hd <= 16)
+    return launch<T, 16>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
+  if (hd <= 32)
+    return launch<T, 32>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
+  if (hd <= 64)
+    return launch<T, 64>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
+  if (hd <= 128)
+    return launch<T, 128>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
+  if (hd <= 256)
+    return launch<T, 256>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -253,6 +267,8 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B, int 
 namespace tc {
 
 using hopper::desc_sw128;
+using hopper::ex2;
+using hopper::pack_bf16;
 
 constexpr int kBM = 128;                         // query rows per block
 constexpr int kBN = 128;                         // keys per tile
@@ -278,18 +294,8 @@ struct Params {
   int H, KV, Sq, Sk, hd, causal, window;
   float scale_log2;          // hd^-0.5 * log2(e)
   long long o_b, o_h, o_s;   // out strides, elements
+  float* lse;                // (B, H, Sq)
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // P in bf16: the accumulator fragment of 16 keys is the A fragment.
 __device__ __forceinline__ void pack_p(const float (&sc)[kBN / 2], uint32_t (&pa)[kBN / 16][4]) {
@@ -537,13 +543,19 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_p(pa);
     }
 
-    // out = O / max(l, 1e-30), written through out's strides
+    // out = O / max(l, 1e-30), written through out's strides; the
+    // log-sum-exp in natural units (m is in log2 units)
     __nv_bfloat16* ob = out + b * p.o_b + h * p.o_h;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float inv = 1.f / fmaxf(repro::group_sum<4>(l[r]), 1e-30f);
+      const float denom = fmaxf(repro::group_sum<4>(l[r]), 1e-30f);
+      const float inv = 1.f / denom;
       const int row = row0 + 8 * r;
       if (row >= p.Sq) continue;
+      if (lane % 4 == 0)
+        p.lse[(static_cast<size_t>(b) * p.H + h) * p.Sq + row] =
+            m[r] <= repro::kNegInf ? repro::kNegInf
+                                   : (m[r] + log2f(denom)) * 0.69314718055994531f;
       __nv_bfloat16* orow = ob + row * p.o_s;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
@@ -556,70 +568,24 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// Error codes of this file beside CUDA's (see cuda_error_string).
-constexpr int kErrNoEncode = -1;
-constexpr int kErrEncode = -2;
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime so the
-// library does not link libcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// A (hd, rows, heads, batch) bf16 map with strides in elements (row, head,
-// batch), read in 64-column boxes of box_rows rows, 128-byte swizzled.
-int make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int hd, int rows, int heads,
-             int batch, const long long* strides, int box_rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[0]) * 2,
-                               static_cast<cuuint64_t>(strides[1]) * 2,
-                               static_cast<cuuint64_t>(strides[2]) * 2};
-  const cuuint32_t box[4] = {kAtom, static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncode;
-}
-
 // strides: q, k, v, out, each (row, head, batch) in elements.
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int KV, int Sq,
-           int Sk, int hd, const long long* strides, int causal, int window, float scale,
-           cudaStream_t stream) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kErrNoEncode;
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int H,
+           int KV, int Sq, int Sk, int hd, const long long* strides, int causal, int window,
+           float scale, cudaStream_t stream) {
+  const hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return hopper::kErrNoEncode;
   CUtensorMap qm, km, vm;
-  if (make_map(encode, &qm, q, hd, Sq, H, B, strides, Layout<HD>::kQRows) ||
-      make_map(encode, &km, k, hd, Sk, KV, B, strides + 3, kBN) ||
-      make_map(encode, &vm, v, hd, Sk, KV, B, strides + 6, kBN))
-    return kErrEncode;
+  if (hopper::make_map(encode, &qm, q, hd, Sq, H, B, strides, Layout<HD>::kQRows) ||
+      hopper::make_map(encode, &km, k, hd, Sk, KV, B, strides + 3, kBN) ||
+      hopper::make_map(encode, &vm, v, hd, Sk, KV, B, strides + 6, kBN))
+    return hopper::kErrEncode;
   const int smem = Layout<HD>::kBytes + 1024;  // + room to align the base
   cudaError_t err = cudaFuncSetAttribute(flash_attention_tc_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const Params p{H, KV, Sq, Sk, hd, causal, window, scale * 1.4426950408889634f,
-                 strides[11], strides[10], strides[9]};
+                 strides[11], strides[10], strides[9], lse};
   const dim3 grid(B * H, (Sq + kBM - 1) / kBM);
   flash_attention_tc_kernel<HD><<<grid, kThreads, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), p);
@@ -631,35 +597,35 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
 // bf16 q (B, H, Sq, hd), k and v (B, KV, Sk, hd), out (B, H, Sq, hd), each
 // with hd contiguous and any other strides that are multiples of 8
 // elements, 16-byte aligned, hd <= 128 and hd % 8 == 0.  strides: 12
-// int64, (row, head, batch) of q, k, v, out.
+// int64, (row, head, batch) of q, k, v, out.  lse: (B, H, Sq) float32,
+// contiguous.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
-                                         int B, int H, int KV, int Sq, int Sk, int hd,
-                                         const long long* strides, int causal, int window,
-                                         float scale, void* stream) {
+                                         float* lse, int B, int H, int KV, int Sq, int Sk,
+                                         int hd, const long long* strides, int causal,
+                                         int window, float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd <= 64)
-    return tc::launch<64>(q, k, v, out, B, H, KV, Sq, Sk, hd, strides, causal, window, scale, s);
+    return tc::launch<64>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, strides, causal, window,
+                          scale, s);
   if (hd <= 128)
-    return tc::launch<128>(q, k, v, out, B, H, KV, Sq, Sk, hd, strides, causal, window, scale, s);
+    return tc::launch<128>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, strides, causal, window,
+                           scale, s);
   return cudaErrorInvalidValue;
 }
 
 // The CUDA-core instance: q (B, H, Sq, hd), k and v (B, KV, Sk, hd), out
 // (B, H, Sq, hd), contiguous, all of one type (bf16 != 0: bfloat16, else
-// float32).
+// float32); lse as above.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int H, int KV, int Sq, int Sk, int hd,
+                                      float* lse, int B, int H, int KV, int Sq, int Sk, int hd,
                                       int causal, int window, float scale, int bf16,
                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return simt::dispatch<__nv_bfloat16>(q, k, v, out, B, H, KV, Sq, Sk, hd, causal, window,
-                                         scale, s);
-  return simt::dispatch<float>(q, k, v, out, B, H, KV, Sq, Sk, hd, causal, window, scale, s);
+    return simt::dispatch<__nv_bfloat16>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, causal,
+                                         window, scale, s);
+  return simt::dispatch<float>(q, k, v, out, lse, B, H, KV, Sq, Sk, hd, causal, window, scale,
+                               s);
 }
 
-extern "C" const char* cuda_error_string(int err) {
-  if (err == tc::kErrNoEncode) return "cuTensorMapEncodeTiled not found in the driver";
-  if (err == tc::kErrEncode) return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+extern "C" const char* cuda_error_string(int err) { return hopper::error_string(err); }

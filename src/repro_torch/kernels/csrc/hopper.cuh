@@ -1,6 +1,6 @@
-// Hopper building blocks for the tensor-core attention kernel: mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors and the wgmma products
-// (PTX; sm_90a only).
+// Hopper building blocks for the tensor-core attention kernels (the flash
+// forward and its backward): mbarriers, TMA tile loads, wgmma
+// shared-memory descriptors and the wgmma products (PTX; sm_90a only).
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzle: rows of
 // 64 bf16 (128 bytes), the 16-byte chunk c of row r stored at chunk
@@ -14,6 +14,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -136,6 +137,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, float32) (+)= A (64 x 16) . B^T (16 x 64); A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 128, float32) += A (64 x 16, bf16 registers) . B (16 x 128); B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
   asm volatile(
@@ -173,6 +190,70 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
+// -- bf16 fragments and exp2 ------------------------------------------------
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// -- tensor maps (host) -----------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes beside CUDA's (see error_string).
+constexpr int kErrNoEncode = -1;
+constexpr int kErrEncode = -2;
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime so the
+// library does not link libcuda.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A (hd, rows, heads, batch) bf16 map with strides in elements (row, head,
+// batch), read in 64-column boxes (one 128-byte swizzled row) of box_rows
+// rows; columns and rows past the extent read as zeros.
+inline int make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int hd, int rows,
+                    int heads, int batch, const long long* strides, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[0]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[2]) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+inline const char* error_string(int err) {
+  if (err == kErrNoEncode) return "cuTensorMapEncodeTiled not found in the driver";
+  if (err == kErrEncode) return "cuTensorMapEncodeTiled refused a tensor map";
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
 
 }  // namespace hopper

@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention import \
     flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_bwd_ref, attention_ref)
+    attention_bwd_ref, attention_lse_ref, attention_ref, visible)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -71,6 +71,31 @@ def test_attention_matches_jax_flash_kernel(S, hd, dtype, window):
     assert fa.launches.count == before      # CPU tensors launch nothing
     _close(attention_ref(q, k, v, causal=False),
            j_attention_ref(jq, jk, jv, causal=False), dtype)
+
+
+@pytest.mark.parametrize("S,hd,dtype,window", [
+    (128, 64, "float32", 0),
+    (256, 32, "bfloat16", 64),
+])
+def test_attention_lse_ref_matches_jax(S, hd, dtype, window):
+    """The plain version of what the forward kernel saves for its
+    backward: each row's log-sum-exp equals ``jax.nn.logsumexp`` of JAX's
+    scaled, masked scores, and exp(s - lse) @ v equals JAX's flash kernel
+    (interpret mode), at the flash tolerances."""
+    B, H, KV = 2, 4, 2
+    (jq, jk, jv), (q, k, v) = _inputs(S + hd + 1, [
+        (B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd)], dtype)
+    out, lse = attention_lse_ref(q, k, v, causal=True, window=window)
+    assert out.dtype == q.dtype and lse.shape == (B, H, S)
+    assert lse.dtype == torch.float32
+    _close(out, j_flash(jq, jk, jv, causal=True, window=window, bq=128,
+                        bk=128, interpret=True), dtype)
+    s = jnp.einsum("bhqd,bhkd->bhqk", jq.astype(jnp.float32),
+                   jnp.repeat(jk, H // KV, axis=1).astype(jnp.float32))
+    s = jnp.where(jnp.asarray(visible(S, S, True, window).numpy()),
+                  s * hd**-0.5, -1e30)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(
+        jax.nn.logsumexp(s, axis=-1)), atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("C,pos,window,dtype", [
@@ -216,6 +241,8 @@ def test_flash_reads_the_models_views_through_their_strides():
     shifted = flat[1:].view(B, H, S, hd)
     assert shifted.data_ptr() % 16 != 0
     assert fa._tma_ready(shifted).data_ptr() % 16 == 0
+    ones = torch.ones(hd, dtype=torch.bfloat16).expand(B, H, S, hd)
+    assert fa._tma_ready(ones).is_contiguous()   # a broadcast cotangent
 
 
 def test_wrappers_check_their_inputs():
@@ -357,19 +384,106 @@ def test_attention_bwd_ref_equals_jax_vjp(B, H, KV, S, hd, hd_v, causal,
 
 def test_flash_backward_wrapper_checks_its_inputs():
     """The backward wrapper refuses what its kernels cannot take before
-    any launch: a row with no visible key, and CPU tensors (the plain
-    version serves them through autograd)."""
+    any launch: a log-sum-exp of another shape or type than the forward's
+    (B, H, Sq) float32, a row with no visible key, and CPU tensors (the
+    plain version serves them through autograd)."""
     q, k, v, dout = _bwd_inputs(2, 1, 2, 1, 8, 16, 16)
-    out = attention_ref(q, k, v)
+    out, lse = attention_lse_ref(q, k, v)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fa.flash_attention_bwd_cuda(q, k, v, out, dout)
+        fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse)
     with pytest.raises(ValueError, match="out and dout"):
-        fa.flash_attention_bwd_cuda(q, k, v, out[..., :8], dout)
+        fa.flash_attention_bwd_cuda(q, k, v, out[..., :8], dout, lse)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse[:, :1])
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse.double())
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse[..., None])
     assert fa.every_row_sees_a_key(8, 8, 3)
     assert not fa.every_row_sees_a_key(20, 8, 3)
     assert fa.every_row_sees_a_key(20, 8, 0)
     meta = [x.to("meta") for x in (q[:, :, :20], k, v, out, dout)]
     meta[0] = torch.empty(1, 2, 20, 16, device="meta")
     meta[3] = meta[4] = torch.empty(1, 2, 20, 16, device="meta")
+    meta.append(torch.empty(1, 2, 20, device="meta"))
     with pytest.raises(NotImplementedError, match="visible key"):
         fa.flash_attention_bwd_cuda(*meta, causal=False, window=3)
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,hd_v,causal,window", BWD_CASES)
+def test_attention_bwd_ref_with_lse_equals_without(B, H, KV, S, hd, hd_v,
+                                                   causal, window):
+    """``attention_bwd_ref`` given the forward's log-sum-exp (P = exp(s -
+    lse), as the backward kernels form it) gives the gradients it gives
+    from the softmax it recomputes, in float32."""
+    q, k, v, dout = _bwd_inputs(3, B, H, KV, S, hd, hd_v)
+    out, lse = attention_lse_ref(q, k, v, causal=causal, window=window)
+    want = attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                             window=window)
+    got = attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window,
+                            lse=lse)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+def _tensor_core_bwd(q, k, v, out, dout, lse, *, window: int):
+    """The tensor-core instance's arithmetic in plain PyTorch: float32
+    products of the bf16 inputs, P = exp(s - lse) and dS = P (dO V^T - D)
+    in float32, each rounded to bf16 before the product that takes it
+    (P^T dO, dS K and dS^T Q), the gradients rounded to bf16."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    mask = visible(S, S, True, window)
+    qf, dof = q.float(), dout.float()
+    kf, vf = (x.float().repeat_interleave(G, 1) for x in (k, v))
+    s = (qf @ kf.transpose(-1, -2)) * hd**-0.5
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    d = (dof * out.float()).sum(-1, keepdim=True)
+    ds = torch.where(mask, p * (dof @ vf.transpose(-1, -2) - d), 0.0)
+    p, ds = (x.bfloat16().float() for x in (p, ds))
+    dq = hd**-0.5 * ds @ kf
+    dk = hd**-0.5 * (ds.transpose(-1, -2) @ qf).view(B, KV, G, S, hd).sum(2)
+    dv = (p.transpose(-1, -2) @ dof).view(B, KV, G, S, -1).sum(2)
+    return tuple(x.bfloat16() for x in (dq, dk, dv))
+
+
+def _row_rel(got, ref):
+    """chip_smoke.grad_rel_errs's per-row reading: max |diff| / max |ref|
+    of each row whose reference is not zero, the largest."""
+    a = np.asarray(got, np.float64).reshape(-1, got.shape[-1])
+    b = np.asarray(ref, np.float64).reshape(-1, ref.shape[-1])
+    rows = np.abs(b).max(-1) > 1e-6 * np.abs(b).max()
+    return float((np.abs(a - b).max(-1)[rows]
+                  / np.abs(b).max(-1)[rows]).max())
+
+
+@pytest.mark.parametrize("hd,window", [(64, 0), (128, 96)])
+def test_tensor_core_rounding_holds_the_bf16_limit(hd, window):
+    """The tensor-core backward rounds P and dS to bf16 (the wgmma
+    operands); that design, on bf16 inputs at G = 4, stays within the
+    bf16 limit of 15a (1e-2 of a row's max) of ``jax.vjp`` of JAX's
+    ``chunked_attention`` in float32, so a rounding that could not hold
+    it shows here before a card run."""
+    from repro.models.attention import chunked_attention
+    B, H, KV, S = 1, 8, 2, 256
+    G = H // KV
+    q, k, v, dout = (x.bfloat16() for x in _bwd_inputs(
+        4 + hd, B, H, KV, S, hd, hd))
+    out, lse = attention_lse_ref(q.float(), k.float(), v.float(),
+                                 window=window)
+    got = _tensor_core_bwd(q, k, v, out, dout, lse, window=window)
+
+    def jax_attention(q, k, v):
+        k = jnp.repeat(k, G, axis=2)
+        v = jnp.repeat(v, G, axis=2)
+        return chunked_attention(q, k, v, causal=True, window=window,
+                                 q_chunk=64, kv_chunk=64)
+    layout = [jnp.asarray(x.float().transpose(1, 2).numpy())
+              for x in (q, k, v)]
+    _, vjp = jax.vjp(jax_attention, *layout)
+    ref = vjp(jnp.asarray(dout.float().transpose(1, 2).numpy()))
+    for g, r in zip(got, ref):
+        r = np.asarray(r).transpose(0, 2, 1, 3)
+        assert g.shape == r.shape
+        assert _row_rel(g.float().numpy(), r) <= 1e-2

@@ -1398,6 +1398,8 @@ def test_sharded_cuda_run_on_a_repeated_card_equals_unsharded(cuda, policy):
 #: dk and dv of max |diff| / max |ref| of a row against the float32 plain
 #: gradients of the same inputs.
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+#: chip_smoke.LSE_TOL: max |diff| of the forward's saved log-sum-exp.
+LSE_TOL = 1e-4
 
 BWD_CASES = [
     # (B, H, KV, S, hd, hd_v, causal, window, dtype): chip_smoke's 15a
@@ -1418,6 +1420,18 @@ BWD_CASES = [
     (3, 4, 1, 65, 120, 120, True, 30, torch.bfloat16),
     (1, 2, 2, 50, 32, 32, False, 9, torch.float32),
     (1, 2, 1, 40, 64, 64, True, 1000, torch.bfloat16),
+    # the tensor-core instance (bf16, hd <= 128): ragged S on both sides
+    # of its 64-row tiles and 128-row blocks, each padded width (hd 32,
+    # 64, 120 in the 128-column instance, 128), G = 1, 4 and 8, windows
+    # that skip tiles, no mask, hd_v < hd
+    (2, 4, 4, 65, 32, 32, True, 0, torch.bfloat16),
+    (1, 8, 2, 130, 64, 64, True, 0, torch.bfloat16),
+    (1, 8, 1, 1000, 128, 128, True, 0, torch.bfloat16),
+    (2, 4, 1, 1000, 120, 120, True, 200, torch.bfloat16),
+    (1, 4, 4, 130, 128, 128, False, 0, torch.bfloat16),
+    (1, 8, 2, 300, 64, 64, False, 70, torch.bfloat16),
+    (2, 8, 2, 192, 64, 48, True, 0, torch.bfloat16),
+    (1, 2, 2, 24, 16, 16, True, 0, torch.bfloat16),
 ]
 
 
@@ -1443,9 +1457,10 @@ def test_flash_backward_kernel_equals_plain(cuda, B, H, KV, S, hd, hd_v,
     dout = _normal(rng, (B, H, S, hd_v), dtype, cuda)
     kw = dict(causal=causal, window=window)
     out = attention_ref(q, k, v, **kw)
+    _, lse = fa._forward(q, k, v, causal, window)
     fa.bwd_launches.reset()
-    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
-    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, **kw)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
     torch.cuda.synchronize()
     assert fa.bwd_launches.count == 4
     ref = attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
@@ -1454,6 +1469,73 @@ def test_flash_backward_kernel_equals_plain(cuda, B, H, KV, S, hd, hd_v,
         assert g.shape == x.shape and g.dtype == dtype
         assert torch.equal(g, a)       # no atomics: the same bits twice
         assert _grad_rel(g, r) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd,hd_v,window,dtype", [
+    (2, 8, 2, 300, 128, 128, 0, torch.bfloat16),
+    (1, 4, 4, 65, 32, 32, 40, torch.bfloat16),
+    (2, 4, 1, 130, 120, 120, 0, torch.bfloat16),
+    (2, 8, 2, 300, 128, 128, 0, torch.float32),
+    (1, 4, 2, 130, 192, 128, 17, torch.bfloat16),
+    (1, 2, 1, 100, 64, 64, 0, torch.float32),
+])
+def test_flash_forward_saves_the_plain_log_sum_exp(cuda, B, H, KV, S, hd,
+                                                   hd_v, window, dtype):
+    """Each forward instance's saved log-sum-exp against
+    ``attention_lse_ref`` on the float32 copies (``LSE_TOL``), with the
+    output the public entry point returns; the model's strided views in
+    the tensor-core instance."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+    rng = np.random.default_rng(S + hd + 5)
+    q, k, v = (_normal(rng, (B, S, n, w), dtype, cuda).transpose(1, 2)
+               for n, w in ((H, hd), (KV, hd), (KV, hd_v)))
+    out, lse = fa._forward(q, k, v, True, window)
+    alone = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    _, ref = attention_lse_ref(q.float(), k.float(), v.float(), window=window)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert float((lse - ref).abs().max()) <= LSE_TOL
+    assert torch.equal(out, alone)
+
+
+def test_flash_dispatch_in_both_directions(cuda, monkeypatch):
+    """The forward and the backward take the instance ``fa.instance``
+    names for each call: bf16 with hd <= 128 the tensor-core entry points
+    (``*_tc_*``), float32 and hd 192 the CUDA-core ones; nothing else."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    calls = []
+
+    class Spy:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self.lib, name)
+            if not name.endswith("_launch"):
+                return fn
+            return lambda *a: (calls.append(name), fn(*a))[1]
+    for name in ("_lib", "_bwd_lib"):
+        real = getattr(fa, name)
+        monkeypatch.setattr(fa, name, lambda real=real: Spy(real()))
+    rng = np.random.default_rng(3)
+    for dtype, hd, want in ((torch.bfloat16, 64, "tensor-core"),
+                            (torch.bfloat16, 120, "tensor-core"),
+                            (torch.bfloat16, 192, "cuda-core"),
+                            (torch.float32, 64, "cuda-core")):
+        assert fa.instance(dtype, hd) == want
+        q, k, v = (_normal(rng, (1, 2, 70, hd), dtype, cuda)
+                   .requires_grad_(True) for _ in range(3))
+        calls.clear()
+        fa.flash_attention_cuda(q, k, v).sum().backward()
+        torch.cuda.synchronize()
+        tc = want == "tensor-core"
+        assert calls == (["flash_attention_tc_launch",
+                          "flash_attention_bwd_tc_dq_launch",
+                          "flash_attention_bwd_tc_dkv_launch"] if tc else
+                         ["flash_attention_launch",
+                          "flash_attention_bwd_dq_launch",
+                          "flash_attention_bwd_dkv_launch"]), (dtype, hd)
 
 
 @pytest.mark.parametrize("dtype,window", [(torch.bfloat16, 0),
@@ -1479,13 +1561,14 @@ def test_flash_attention_autograd_on_card(cuda, dtype, window):
                for n in (H, KV, KV))
     dout = _normal(rng, (B, H, S, hd), dtype, cuda)
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    _, lse = fa._forward(q, k, v, True, window)
     fa.launches.reset()
     fa.bwd_launches.reset()
     out = attention(*leaves, window=window)
     out.backward(dout)
     torch.cuda.synchronize()
     assert (fa.launches.count, fa.bwd_launches.count) == (1, 2)
-    want = fa.flash_attention_bwd_cuda(q, k, v, out.detach(), dout,
+    want = fa.flash_attention_bwd_cuda(q, k, v, out.detach(), dout, lse,
                                        window=window)
     ref = attention_bwd_ref(q.float(), k.float(), v.float(),
                             out.detach().float(), dout.float(),

@@ -25,13 +25,17 @@ the first:
 * h2o-danube-3-4b's bf16 ring step at full width, kernels against plain
   (``ring_step`` on ``danube_rings``, held at ``RING_BF16_TOL``).
 
-With ``--backward`` it reads the checks of phase 15 instead, the fault
-planted in the flash backward's launches alone (the forward and decode
-kernels sound):
+With ``--backward`` it reads the checks of phase 15 instead:
 
-* each 15a row (``BWD_SHAPES`` at each dtype): the backward kernel
-  against the plain version's float32 gradients, the largest over dq, dk
-  and dv of max |diff| / max |ref| of a row (held at ``BWD_TOL``);
+* each 15a row (``BWD_SHAPES`` at each dtype), the instance named: the
+  forward kernel's saved log-sum-exp against ``attention_lse_ref``, max
+  |diff| (held at ``LSE_TOL``), with the fault planted in the forward's
+  launches; then the backward kernel, fed the sound forward's
+  log-sum-exp, against the plain version's float32 gradients, the
+  largest over dq, dk and dv of max |diff| / max |ref| of a row (held at
+  ``BWD_TOL``), with the fault planted in the backward's launches alone
+  (the tensor-core or CUDA-core entry points, whichever the dispatch
+  takes);
 
 and, unless ``--no-models``, sound on every seed and with each fault on
 the first:
@@ -106,23 +110,32 @@ def backward_rows(dev, seeds, faults) -> None:
         for dtype in shape[-1]:
             for seed in seeds:
                 inputs = cs.bwd_inputs(dev, seed, tag, getattr(torch, dtype))
+                lse_cells = []
+                for factor in (1.0, *faults):
+                    with scale_fault(factor):
+                        _, inst, err = cs.kernel_lse(inputs, window)
+                    lse_cells.append(f"x{factor:g} {err:.3g}")
+                lse = cs.kernel_lse(inputs, window)[0]
                 ref = attention_bwd_ref(*(x.float() for x in inputs),
                                         causal=True, window=window)
                 cells = []
                 for factor in (1.0, *faults):
                     with backward_fault(factor):
                         got = fa.flash_attention_bwd_cuda(
-                            *inputs, causal=True, window=window)
+                            *inputs, lse, causal=True, window=window)
                     torch.cuda.synchronize()
                     reads = [cs.grad_rel_errs(a, b) for a, b in zip(got, ref)]
                     cells.append(f"x{factor:g} " + "/".join(
                         f"{r[0]:.4g}" for r in reads))
                     del got
-                del ref, inputs
-                print(f"flash_attention_bwd {tag} {dtype} seed {seed}: max "
-                      f"|diff| / max |ref| of a row, dq/dk/dv, vs float32 "
-                      f"plain: {'; '.join(cells)} [limit "
-                      f"{cs.BWD_TOL[dtype]:g}]", flush=True)
+                del ref, inputs, lse
+                print(f"flash_attention_bwd {tag} {dtype} seed {seed} "
+                      f"({inst} instance): forward log-sum-exp max |diff| "
+                      f"vs plain: {'; '.join(lse_cells)} [limit "
+                      f"{cs.LSE_TOL:g}]; backward max |diff| / max |ref| of "
+                      f"a row, dq/dk/dv, vs float32 plain: "
+                      f"{'; '.join(cells)} [limit {cs.BWD_TOL[dtype]:g}]",
+                      flush=True)
                 torch.cuda.empty_cache()
 
 
