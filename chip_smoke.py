@@ -42,8 +42,9 @@ port's paths through the entry points a user calls:
     resource, Qcap = 1024, 128 members, 1000 slots;
   * best-fit path: ``best_fit_batched`` on 128 clusters of 1000 servers
     with bursts of 4096 jobs;
-  * serve path: llama3-8b at full width (32 layers, d_model 4096, vocab
-    128256, bf16, random weights from ``--seed``) behind
+  * serve path: llama3-8b at full width (d_model 4096, vocab 128256,
+    bf16, random weights from ``--seed``), depth cut to ``SERVE_LAYERS``
+    = 16 of 32 for the engine run, the prefill and the profile, behind
     ``ServingEngine(num_replicas=2, b_slots=4, c_max=2048, policy="bf")``
     answering 8 requests (prompts U[256, 1024] tokens, U[16, 64] new
     tokens, submitted at once, so the BF-J/S admission queue fills), then
@@ -52,8 +53,8 @@ port's paths through the entry points a user calls:
     gates hold the model's decode with the kernels against decode with
     their plain versions, and prefill against the last decode step, in
     bf16 (before the path, on the weights and prompts of two seeds) and
-    in float32 at the same width and depth on the prompt's first 64 tokens
-    (after it).  A profile of one full-width decode step then splits its
+    in float32 on the prompt's first 64 tokens (after it), both at all 32
+    layers.  A profile of one full-width decode step then splits its
     device time by kernel and gives the card's busy share;
   * Mamba2 path: the ssd_scan kernel against its plain version (the
     sequential recurrence) at the prefill shape below and the shapes of
@@ -137,7 +138,27 @@ port's paths through the entry points a user calls:
     examples/train_small.py's 10M
     model trained 60 steps (the loss falls by 10%), and a run preempted
     at step 36 and resumed from its step-36 checkpoint equal to the
-    uninterrupted one bit for bit, under deterministic algorithms (15c).
+    uninterrupted one bit for bit, under deterministic algorithms (15c);
+  * the chunk scan's backward (phase 16): the tensor-core instructions of
+    its kernels (``csrc/ssd_scan_bwd.cu``), then at ``SSD_BWD_SHAPES``
+    (mamba2-130m's training microbatch, 4 x 4096 tokens in chunks of 256,
+    as ``mamba_apply`` gives it and all float32; two groups of ragged
+    widths; Lc = 1024) the gradients through ``SSDScan`` held per tensor
+    to the plain backward (``ssd_bwd_ref``) and to autograd of the chunked
+    form in float64 (``SSD_BWD_TOL``), two calls equal bit for bit, each
+    stage kernel against its plain stage, timed beside the bound (16a);
+    mamba2-130m at full width and depth (24 layers), float32 masters from
+    ``--seed`` and bf16 compute: the gradients through the kernels held
+    per parameter to the plain chunked form's in bf16 and float32
+    (``MAMBA_TRAIN_GRAD_TOL``), ``Trainer.run`` for 4 steps of 2
+    microbatches x 4 x 4096 tokens (global batch 8, cut from TRAIN_4K's
+    256) with every loss finite and exact launch counts (per layer and
+    microbatch the scan's three forward launches, their remat re-run and
+    four backward launches), a profile of one step with the scan's
+    forward, re-run and backward apart, then the trained weights in bf16
+    served (16b); jamba-1.5-large-398b's smoke config (attention, MoE and
+    Mamba with two groups) trained 2 steps in float32 behind the same
+    gate (16c).
 
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after; it must launch its own kernel and no other.  The
@@ -149,7 +170,7 @@ bench-shape comparisons' horizons halved (``BENCH_SLOTS``), when the
 trace path came in, to keep the run inside its limit on a slow host).
 Each phase prints its host seconds on a line of its own, and the "all phases
 passed" line the total.  The second-to-last line of stdout is a JSON object
-with one entry per kernel, ten, live_admission last (launches, error
+with one entry per kernel, eleven, live_admission last (launches, error
 against the plain version, kernel, plain, bound and library times; the attention
 kernels' and SDPA's times are device times of a CUDA graph of calls, since
 an eager decode call is bound by the host; best_fit's row adds ``ms_g1``,
@@ -162,7 +183,11 @@ for the windowed 8192-token prefill, and ``launches_phase_14a`` /
 ``launches_phase_14b``; flash_attention_bwd's row is llama's bf16
 microbatch, the other 15a shapes under suffixed keys such as
 ``ms_llama_float32`` and ``ms_swa_bfloat16``, and its launches are
-15b's, 15c's under ``launches_phase_15c``); the last line is
+15b's, 15c's under ``launches_phase_15c``; ssd_scan_bwd's row is 16a's
+"train" shape with each stage's time and each gradient's readings, the
+other shapes under suffixed keys such as ``ms_float32``, and its
+launches are 16b's, 16c's under ``launches_phase_16c``; the ssd_scan row
+adds its launches in 16b and 16c); the last line is
 ``{"ok": true, "device": ...}``.  Any failed phase raises, and the script
 exits non-zero without a result — also when no CUDA device is present.
 """
@@ -208,6 +233,12 @@ PLAIN_SLOTS = 250
 #: servers; ``benchmarks/sched_micro.py`` runs 2000 and 3000 slots), cut
 #: for the same reason.
 BENCH_SLOTS = 1000
+
+#: Layers of llama3-8b that phase 9's engine run, its 2048-token prefill,
+#: the decode-step profile and phase 13e's serve run on: cut from 32 for
+#: the script's time (the serve path is host-bound, ~57 launches a layer
+#: a decode step); the teacher-forced gates keep all 32.
+SERVE_LAYERS = 16
 
 #: Seeds whose weights and 256-token prompt the bf16 teacher-forced gate
 #: runs on: ``--seed`` and the one after it.  Cut from 3 when phase 14
@@ -1130,18 +1161,27 @@ def call_site_split(tag: str, prof, unit: str, top: int = 14,
 
 
 def device_split(tag: str, prof, wall_us: float, reps: int,
-                 unit: str, parts: dict | None = None) -> None:
+                 unit: str, parts: dict | None = None,
+                 ranges: tuple = ()) -> None:
     """Print the device time of ``reps`` runs of one ``unit`` recorded by
     ``prof`` in a ``wall_us`` window: the busy share, the time per run,
     the matrix products' share, each of ``parts`` (a label and the
-    substrings of its kernels' names) and the ten largest kernels."""
+    substrings of its kernels' names), the device time under each of the
+    ``record_function`` ``ranges`` (the profiler lists them among the
+    device's entries; they are kept out of the kernels' sums) and the ten
+    largest kernels."""
     import torch
     times: dict[str, float] = {}
+    marked: dict[str, float] = {}
     launches = 0
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            times[e.key] = times.get(e.key, 0.0) + e.self_device_time_total
-            launches += e.count
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.key in ranges:
+            marked[e.key] = e.device_time_total
+            continue
+        times[e.key] = times.get(e.key, 0.0) + e.self_device_time_total
+        launches += e.count
     busy = sum(times.values())
     if busy == 0:
         print(f"{tag} profile: the profiler recorded no device time: device "
@@ -1160,6 +1200,11 @@ def device_split(tag: str, prof, wall_us: float, reps: int,
                  if any(k in name for k in keys))
         print(f"{tag} profile: {label} {us / reps / 1e3:.3f} ms/{unit} "
               f"({us / busy:.1%})")
+    for name in ranges:
+        us = marked.get(name, 0.0)
+        print(f"{tag} profile: under {name!r} "
+              + (f"{us / reps / 1e3:.3f} ms/{unit} ({us / busy:.1%})" if us
+                 else "no device time recorded: not measured"))
     for name, us in sorted(times.items(), key=lambda kv: -kv[1])[:10]:
         print(f"{tag} profile:  {us / reps / 1e3:8.3f} ms/{unit} "
               f"{us / busy:6.1%}  {name[:90]}")
@@ -1211,9 +1256,10 @@ def check_served(tag: str, cfg, engine, done, n: int = 8) -> None:
 
 def serve_path(dev, seed: int, counters, reset_counters,
                with_weights=None) -> dict:
-    """The LM serving path at llama3-8b's full width; returns the two
-    attention kernels' launches in the path's run.  ``with_weights(cfg,
-    params)`` runs on the loaded bf16 weights before they are freed."""
+    """The LM serving path at llama3-8b's full width, the gates at full
+    depth and the path at ``SERVE_LAYERS``; returns the two attention
+    kernels' launches in the path's run.  ``with_weights(cfg, params)``
+    runs on the path's bf16 weights before they are freed."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -1224,6 +1270,7 @@ def serve_path(dev, seed: int, counters, reset_counters,
     # vs decode; the float32 one follows the path
     for s in range(seed, seed + BF16_GATE_SEEDS):
         gate_on_seed(cfg, dev, s, 256)
+    full, cfg = cfg, cfg.with_(num_layers=SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     init_ms, params = wall_ms(lambda: M.init_params(
         cfg, torch.Generator(device=dev).manual_seed(seed), device=dev))
@@ -1231,7 +1278,8 @@ def serve_path(dev, seed: int, counters, reset_counters,
                                        params["head"]["w"]]) + sum(
         x.numel() for layer in params["layers"]
         for part in layer.values() for x in part.values())
-    print(f"serve: llama3-8b {cfg.num_layers} layers d_model {cfg.d_model} "
+    print(f"serve: llama3-8b {cfg.num_layers} of {full.num_layers} layers "
+          f"d_model {cfg.d_model} "
           f"vocab {cfg.vocab_size} {cfg.dtype}: {n_params / 1e9:.3f} B "
           f"parameters drawn on the card in {init_ms / 1e3:.1f} s")
 
@@ -1297,7 +1345,7 @@ def serve_path(dev, seed: int, counters, reset_counters,
     # the same gates in float32 at full width and depth, on the prompt's
     # first 64 tokens: here the kernels and the model must agree to float32
     # precision, not to bf16's
-    gate_on_seed(cfg.with_(dtype="float32"), dev, seed, 64)
+    gate_on_seed(full.with_(dtype="float32"), dev, seed, 64)
     return launches
 
 
@@ -3101,12 +3149,14 @@ def bwd_phase(dev, seed: int) -> dict:
     return row
 
 
-def train_grad_gate(trainer, params, batch, dtype: str,
-                    check: bool = True) -> float:
-    """15b's gate: the loss's gradients through the flash kernels against
-    the plain attention's on ``batch``, per parameter; every parameter
-    must get a finite gradient.  Returns the largest reading (held to
-    ``TRAIN_GRAD_TOL`` unless ``check`` is off)."""
+def train_grad_gate(trainer, params, batch, dtype: str, check: bool = True,
+                    tag: str = "15b",
+                    limits: dict = TRAIN_GRAD_TOL) -> float:
+    """15b's gate (16b's and 16c's with their ``tag`` and ``limits``): the
+    loss's gradients through the kernels against the plain versions' on
+    ``batch``, per parameter; every parameter must get a finite gradient.
+    Returns the largest reading (held to ``limits`` unless ``check`` is
+    off)."""
     import torch
     from repro_torch.train.optimizer import tree_leaves
     grads = {}
@@ -3114,24 +3164,26 @@ def train_grad_gate(trainer, params, batch, dtype: str,
         loss, g = trainer.loss_and_grad(params, batch, use_kernels=use)
         leaves = tree_leaves(g)
         if any(x is None for x in leaves):
-            raise AssertionError(f"15b {dtype}: a parameter got no gradient "
+            raise AssertionError(f"{tag} {dtype}: a parameter got no "
+                                 "gradient "
                                  f"(use_kernels={use})")
         if not all(bool(torch.isfinite(x).all()) for x in leaves):
-            raise AssertionError(f"15b {dtype}: a gradient is not finite")
+            raise AssertionError(f"{tag} {dtype}: a gradient is not finite")
         grads[use] = (float(loss), leaves)
     reads = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
              for a, b in zip(grads[True][1], grads[False][1])]
     worst = max(reads)
-    print(f"15b gradient gate {dtype}: loss {grads[True][0]:.6f} with the "
+    print(f"{tag} gradient gate {dtype}: loss {grads[True][0]:.6f} with the "
           f"kernels, {grads[False][0]:.6f} plain; per parameter max |diff| / "
           f"max |grad| largest {worst:.4g}, median "
           f"{float(np.median(reads)):.4g} over {len(reads)} parameters "
-          f"(limit {TRAIN_GRAD_TOL[dtype]:g})", flush=True)
+          f"(limit {limits[dtype]:g})", flush=True)
     del grads
     torch.cuda.empty_cache()
-    if check and not worst <= TRAIN_GRAD_TOL[dtype]:
-        raise AssertionError(f"15b gradient gate {dtype}: {worst:.4g} over "
-                             f"{TRAIN_GRAD_TOL[dtype]:g}")
+    if check and not worst <= limits[dtype]:
+        raise AssertionError(f"{tag} gradient gate {dtype}: {worst:.4g} "
+                             "over "
+                             f"{limits[dtype]:g}")
     return worst
 
 
@@ -3318,6 +3370,448 @@ def small_path(dev, counters, reset_counters, steps: int = 60,
     return launches
 
 
+#: 16a's shapes of the chunk scan's backward: (B, H, G, nc, Lc, hd, N,
+#: kind).  "train" is 16b's microbatch at mamba2-130m's width (S = 4096,
+#: the registry's TRAIN_4K length, in 16 chunks of 256) as ``mamba_apply``
+#: gives it (float32 x, a and dy as views of the model's layout, bf16 B and
+#: C slices of the conv output: the path's instance, the kernels line's
+#: row); "float32" the same all float32 and contiguous; "groups" two
+#: groups of four heads with hd and N the wrapper pads; "lc1024" the
+#: largest chunk, in the model's layout.
+SSD_BWD_SHAPES = {
+    "train": (4, 24, 1, 16, 256, 64, 128, "model"),
+    "float32": (4, 24, 1, 16, 256, 64, 128, "float32"),
+    "groups": (2, 8, 2, 8, 256, 62, 126, "float32"),
+    "lc1024": (1, 24, 1, 4, 1024, 64, 128, "model")}
+
+#: Limits of 16a, per gradient tensor as max |diff| / max |grad| against
+#: the plain backward on float32 copies (and against autograd of the
+#: chunked form in float64).  tools/ssd_margins.py on seeds 0-2 (PERF.md,
+#: section 6): sound float32 gradients read at most 6.8e-6; dB and dC that
+#: come back in bf16 (rounded from float32, so at most one bf16 step,
+#: 2^-7, off) 0.0017-0.0032.  With no reverse state pass dx, dB and da
+#: read 0.16 and more (dB in bf16 too); with dcs shifted a row, da 0.94
+#: and more.
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+#: Limits of 16b's and 16c's gradient gates: per parameter, max |diff| /
+#: max |grad| of the gradients through the kernels against the plain
+#: chunked form's (``use_kernels=False``) on the same card.  float32
+#: decides: at mamba2-130m's full width and depth sound runs read
+#: 3.5e-5-4.2e-5 on seeds 0-2, and either planted fault of
+#: tools/ssd_margins.py 0.54 and more.  bf16: 24 layers of bf16 rounding
+#: read 0.094-0.114 sound and 0.56 and more with a fault, so the limit
+#: sits between, ~2.2x from each (PERF.md, section 6).
+MAMBA_TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 0.25}
+
+
+def ssd_bwd_work(B, H, G, nc, Lc, hd, N, bc_size=4) -> tuple[float, float,
+                                                              float]:
+    """Bytes and operations of the chunk scan's backward, and the TF32
+    tensor-core operations its products take in split TF32.  Bytes: x,
+    a, dy, B and C read once, dx, da, dB and dC written once.  Operations
+    per chunk and head over the causal pairs (as ``ssd_work``): the scores
+    C B^T and dy x^T, Lc (Lc + 1) N and Lc (Lc + 1) hd; P dy into dx, P' C
+    into dB and P' B into dC, Lc (Lc + 1) hd, N and N; and the four (hd x
+    N) state products (dS, and the state terms of dx, dB and dC), 2 Lc hd
+    N each.  TF32: three mma a product in split TF32, fewer where B or C
+    are bf16 (exact in TF32, no lo part): C B^T one, P' C, P' B and the
+    state term of dx two."""
+    S = nc * Lc
+    nbytes = 4 * B * S * H * (3 * hd + 2) + 4 * bc_size * B * S * G * N
+    pairs = B * H * nc * Lc * (Lc + 1)
+    state = B * H * nc * 2 * Lc * hd * N
+    scores_cb, scores_gx = pairs * N, pairs * hd
+    dx_p, db_p, dc_p = pairs * hd, pairs * N, pairs * N
+    ops = scores_cb + scores_gx + dx_p + db_p + dc_p + 4 * state
+    if bc_size == 4:
+        tf32 = 3 * ops
+    else:
+        tf32 = scores_cb + 3 * scores_gx + 3 * dx_p + 2 * (db_p + dc_p) \
+            + (3 + 2 + 3 + 3) * state
+    return nbytes, ops, tf32
+
+
+def ssd_bwd_inputs(dev, seed: int, tag: str):
+    """16a's inputs at ``SSD_BWD_SHAPES[tag]`` from numpy's generator on
+    (seed, tag): the leaves (x, B and C, a, dy) and a function giving the
+    kernel's views of them, (B, H or G, nc, Lc, *), and dy's."""
+    import torch
+    import torch.nn.functional as F
+    B, H, G, nc, Lc, hd, N, kind = SSD_BWD_SHAPES[tag]
+    S = nc * Lc
+    rng = np.random.default_rng([seed, 3, list(SSD_BWD_SHAPES).index(tag)])
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    x, a, dy = normal(B, S, H, hd) * 0.5, -F.softplus(normal(B, S, H)), \
+        normal(B, S, H, hd)
+    bc = normal(B, S, 2 * G * N) * 0.5
+    if kind == "model":
+        bc = bc.to(torch.bfloat16)
+
+    def views(x, bc, a, dy):
+        def heads(t):
+            return t.reshape(B, nc, Lc, H, -1).permute(0, 3, 1, 2, 4)
+
+        def groups(t):
+            return t.reshape(B, nc, Lc, G, N).permute(0, 3, 1, 2, 4)
+        out = (heads(x), groups(bc[..., :G * N]), groups(bc[..., G * N:]),
+               a.reshape(B, nc, Lc, H).permute(0, 3, 1, 2), heads(dy))
+        if kind == "model":
+            return out
+        return tuple(t.contiguous() for t in out)
+    return (x, bc, a, dy), views
+
+
+def ssd_bwd_check(tag: str, dev, seed: int, with_times: bool) -> dict:
+    """16a at one shape: the gradients through ``SSDScan`` (the forward's
+    three launches, then the backward's ``LAUNCHES_PER_BWD``) against
+    ``ssd_bwd_ref`` on float32 copies and against ``torch.autograd`` of
+    the plain chunked form (``ssd_chunk_scan``) in float64, per tensor
+    within ``SSD_BWD_TOL``; two calls equal bit for bit; with
+    ``with_times``, each backward stage kernel against its plain stage,
+    the device times of the call and of each launch (CUDA events after a
+    warm-up), the plain version's, and the bound.  Prints its lines;
+    returns the readings and times."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models.mamba2 import ssd_chunk_scan
+    B, H, G, nc, Lc, hd, N, kind = SSD_BWD_SHAPES[tag]
+    leaves, views = ssd_bwd_inputs(dev, seed, tag)
+    x, b, c, a, g = views(*leaves)
+
+    def through_kernels():
+        args = [t.detach().requires_grad_() for t in (x, b, c, a)]
+        before = sk.bwd_launches.count
+        y = sk.ssd_scan_cuda(*args)
+        grads = torch.autograd.grad(y, args, g)
+        if sk.bwd_launches.count != before + sk.LAUNCHES_PER_BWD:
+            raise AssertionError(f"ssd_scan_bwd {tag}: "
+                                 f"{sk.bwd_launches.count - before} launches,"
+                                 f" expected {sk.LAUNCHES_PER_BWD}")
+        return grads
+    got = through_kernels()
+    again = through_kernels()
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        raise AssertionError(f"ssd_scan_bwd {tag}: two calls on the same "
+                             "inputs differ")
+    del again
+    f32 = [t.detach().float() for t in (x, b, c, a)]
+    starts = sref.state_pass_ref(*sref.chunk_states_ref(f32[0], f32[1],
+                                                        f32[3]))
+    ref = sref.ssd_bwd_ref(*f32, starts, g)
+    leaves64 = [t.double().requires_grad_() for t in f32]
+    hpg = H // G
+
+    def chunked(x, b, c, a):
+        def lay(t):                                   # heads after Lc
+            return t.movedim(1, 3)
+        y, _ = ssd_chunk_scan(
+            lay(x), lay(b.repeat_interleave(hpg, 1)),
+            lay(c.repeat_interleave(hpg, 1)), lay(a),
+            torch.zeros((B, H, hd, N), dtype=torch.float64, device=dev))
+        return y.movedim(3, 1)
+    form = torch.autograd.grad(chunked(*leaves64), leaves64, g.double())
+    del leaves64
+    names = ("dx", "dB", "dC", "da")
+    reads, errs = {}, []
+    for name, gk, r, r64 in zip(names, got, ref, form):
+        dtype = "bfloat16" if gk.dtype == torch.bfloat16 else "float32"
+        rd = [float((gk.double() - w.double()).abs().max())
+              / max(float(w.abs().max()), 1e-30) for w in (r, r64)]
+        errs.append(float((gk.double() - r.double()).abs().max()))
+        reads[name] = (rd[0], rd[1], dtype)
+        if not max(rd) <= SSD_BWD_TOL[dtype]:
+            raise AssertionError(
+                f"ssd_scan_bwd {tag} {name} ({dtype}): max |diff| / max "
+                f"|grad| {rd[0]:.4g} against the plain backward, {rd[1]:.4g} "
+                f"against the chunked form, over {SSD_BWD_TOL[dtype]:g}")
+    line = (f"ssd_scan_bwd {tag} B={B} H={H} G={G} nc={nc} Lc={Lc} hd={hd} "
+            f"N={N} ({'model layout, bf16 B C' if kind == 'model' else kind}"
+            f"): max |diff| / max |grad| against the plain backward and the "
+            f"float64 chunked form: " + ", ".join(
+                f"{n} {r[0]:.3g} / {r[1]:.3g} ({r[2]}, limit "
+                f"{SSD_BWD_TOL[r[2]]:g})" for n, r in reads.items())
+            + "; two calls equal")
+    row = dict(max_abs_err=max(errs), reads=reads)
+    if not with_times:
+        print(line, flush=True)
+        return row
+    y, saved = sk._scan(x, b, c, a)
+    xp, bp, cp, ap, st, tot, out = saved
+    gp = sk.operand(g.float(), xp.shape[-1])
+    ms = time_ms(lambda: sk.ssd_scan_bwd_cuda(xp, bp, cp, ap, gp, out, st,
+                                              tot), 10)
+    plain_ms = time_ms(lambda: sref.ssd_bwd_ref(*f32, starts, g), 1)
+    stage_ms = ssd_bwd_stages(tag, xp, bp, cp, ap, gp, out, st, tot)
+    nbytes, ops, tf32 = ssd_bwd_work(B, H, G, nc, Lc, hd, N,
+                                     b.element_size())
+    b_ms, b_by = bound(nbytes, tf32, TF32_TC_OPS_PER_S)
+    stages = ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items())
+    print(line + f"; call {ms:.4f} ms ({stages}), plain "
+          f"{plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e9:.3f} GB = {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms;"
+          f" {tf32 / 1e9:.1f} GFLOP of TF32 products for {ops / 1e9:.1f} "
+          f"GFLOP at {TF32_TC_OPS_PER_S:.3g}/s = "
+          f"{tf32 / TF32_TC_OPS_PER_S * 1e3:.4f} ms); {ms / b_ms:.1f}x the "
+          "bound", flush=True)
+    return dict(row, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                stage_ms=stage_ms)
+
+
+def ssd_bwd_stages(tag: str, x, b, c, a, g, y, starts, totals) -> dict:
+    """Each backward stage kernel against its plain stage on the same
+    padded operands (within 1e-4 of its max), and its time (CUDA events,
+    mean of 10 calls after a warm-up)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    G, N = b.shape[1], b.shape[-1]
+    states, _ = sref.chunk_states_ref(x, b, a)
+
+    def close(what, got, want):
+        err = float((got.double() - want.double()).abs().max())
+        if not err <= 1e-4 * float(want.abs().max()):
+            raise AssertionError(f"ssd_scan_bwd {tag} {what}: max abs err "
+                                 f"{err:.3g} against the plain stage")
+    dS = sk.chunk_dstates_cuda(g, c, a)
+    want_dS = sref.chunk_dstates_ref(g, c, a)
+    close("chunk_dstates", dS, want_dS)
+    Q, dT = sref.state_pass_bwd_ref(want_dS, starts, totals)
+    end = dT + (Q * states).sum((-2, -1))
+    q, e = sk.state_pass_bwd_cuda(want_dS.clone(), starts, totals)
+    close("state_pass_bwd Q", q, Q)
+    close("state_pass_bwd end", e, end)
+    got = sk.chunk_scan_bwd_cuda(x, b, c, a, g, y, starts, Q, end)
+    want = sref.chunk_scan_bwd_ref(x, b, c, a, starts, Q, dT, g)
+    for what, gk, w in zip(("dx", "dB", "dC", "da"), got, want):
+        close(f"chunk_scan_bwd {what}", gk[..., :w.shape[-1]], w)
+    dB, dC = sk.group_sum_cuda(got[1], got[2], G, N, torch.float32)
+    close("group_sum dB", dB, sref.group_sum_ref(want[1], G))
+    close("group_sum dC", dC, sref.group_sum_ref(want[2], G))
+    scratch = want_dS.clone()
+    return {
+        "chunk_dstates": time_ms(lambda: sk.chunk_dstates_cuda(g, c, a), 10),
+        "state_pass_bwd": time_ms(lambda: sk.state_pass_bwd_cuda(
+            scratch, starts, totals), 10),
+        "chunk_scan_bwd": time_ms(lambda: sk.chunk_scan_bwd_cuda(
+            x, b, c, a, g, y, starts, Q, end), 10),
+        "group_sum": time_ms(lambda: sk.group_sum_cuda(
+            got[1], got[2], G, N, b.dtype), 10)}
+
+
+def ssd_bwd_phase(dev, seed: int) -> dict:
+    """16a: the tensor-core instructions of the backward's stage kernels,
+    then ``ssd_bwd_check`` at every ``SSD_BWD_SHAPES`` shape, timed at
+    "train" (the row's keys) and "float32" (``float32``-suffixed keys)."""
+    import torch
+    row = {"tensor_cores": tensor_core_check(
+        "ssd_scan_bwd", ("chunk_dstates_kernel", "chunk_scan_bwd_kernel"))}
+    print(f"ssd_scan_bwd tensor-core instructions (SASS HMMA) per kernel: "
+          f"{row['tensor_cores']}", flush=True)
+    for tag in SSD_BWD_SHAPES:
+        r = ssd_bwd_check(tag, dev, seed, tag in ("train", "float32"))
+        torch.cuda.empty_cache()
+        if tag == "train":
+            row.update((k, r[k]) for k in ROW_KEYS if k in r)
+            row.update(stage_ms=r["stage_ms"], reads=r["reads"])
+        else:
+            row.update((f"{k}_{tag}", r[k]) for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "stage_ms")
+                if k in r)
+    return row
+
+
+def mamba_grad_gate(cfg, tcfg, dev, params, batch, dtype: str,
+                    check: bool = True, tag: str = "16b") -> float:
+    """16b's and 16c's gate: ``train_grad_gate`` with the chunk scan's
+    limits (``MAMBA_TRAIN_GRAD_TOL``) on ``cfg`` in ``dtype``."""
+    from repro_torch.train.trainer import Trainer
+    gate = Trainer(cfg.with_(dtype=dtype), tcfg, device=dev)
+    return train_grad_gate(gate, params, batch, dtype, check,
+                           tag=tag, limits=MAMBA_TRAIN_GRAD_TOL)
+
+
+def mamba_train_gates(dev, seed: int, check: bool = True) -> tuple:
+    """mamba2-130m at full width and depth, float32 masters from ``seed``,
+    and 16b's trainer; with the gradient gate on the first microbatch of
+    step 1's batch in bf16 and float32.  Returns (cfg, tcfg, trainer,
+    params, readings)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_for_model, device_put_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("mamba2-130m")
+    # TRAIN_4K's length; its global batch of 256 cut to 8 for the run's time
+    tcfg = TrainerConfig(seq_len=4096, global_batch=8, microbatches=2,
+                         steps=4, ckpt_every=0, log_every=1)
+    trainer = Trainer(cfg, tcfg, device=dev)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           device=dev, param_dtype=torch.float32)
+    batch = device_put_batch(batch_for_model(cfg, trainer.dcfg, 0), dev)
+    micro = {k: v[:tcfg.global_batch // tcfg.microbatches]
+             for k, v in batch.items()}
+    reads = {dtype: mamba_grad_gate(cfg, tcfg, dev, params, micro, dtype,
+                                    check)
+             for dtype in ("bfloat16", "float32")}
+    return cfg, tcfg, trainer, params, reads
+
+
+def mamba_step_profile(trainer, state, batch) -> None:
+    """The device split of one 16b step under the profiler, the chunk
+    scan's forward, its remat re-run and its backward named apart: the
+    forward calls are marked by whether autograd is running a backward
+    node when they start (the re-run happens inside the backward pass)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    scan, bwd = sk._scan, sk.ssd_scan_bwd_cuda
+
+    def marked_scan(*args):
+        rerun = torch._C._current_autograd_node() is not None
+        with torch.profiler.record_function(
+                "ssd_scan re-run" if rerun else "ssd_scan forward"):
+            return scan(*args)
+
+    def marked_bwd(*args):
+        with torch.profiler.record_function("ssd_scan backward"):
+            return bwd(*args)
+    sk._scan, sk.ssd_scan_bwd_cuda = marked_scan, marked_bwd
+    try:
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(state.params, state.opt_state, batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        sk._scan, sk.ssd_scan_bwd_cuda = scan, bwd
+    device_split("16b train", prof, wall_us, 1, "step", parts={
+        "ssd_scan forward kernels (forward and its remat re-run)": (
+            "chunk_states_kernel", "state_pass_kernel", "chunk_scan_kernel"),
+        "ssd_scan backward kernels": (
+            "chunk_dstates_kernel", "state_pass_bwd_kernel",
+            "chunk_scan_bwd_kernel", "group_sum_kernel")},
+        ranges=("ssd_scan forward", "ssd_scan re-run", "ssd_scan backward"))
+
+
+def mamba_train_path(dev, seed: int, counters, reset_counters) -> dict:
+    """16b: mamba2-130m at full width and depth (24 layers), bf16 compute
+    on float32 masters: the gradient gate, then ``Trainer.run`` for 4
+    steps of 2 microbatches x 4 rows x 4096 tokens with exact launch
+    counts (a layer and microbatch: the scan's three forward launches,
+    their remat re-run and ``LAUNCHES_PER_BWD`` backward launches;
+    nothing else), a profile of one step, and the trained weights cast to
+    bf16 and served.  Returns the path's launches."""
+    import torch
+    from repro_torch.data.pipeline import batch_for_model, device_put_batch
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.train.trainer import TrainState
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tcfg, trainer, params, _ = mamba_train_gates(dev, seed)
+    print(f"16b: mamba2-130m d_model {cfg.d_model}, {cfg.ssm_heads} heads "
+          f"of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}, {cfg.num_layers} "
+          f"layers: {param_count(params) / 1e6:.1f} M parameters, float32 "
+          f"masters, bf16 compute, remat {cfg.remat_policy}", flush=True)
+    state = TrainState(params, trainer.optimizer.init(params))
+    del params
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.run(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: c.count for k, c in counters.items()}
+    hist, secs = state.metrics["loss_history"], state.metrics["step_seconds"]
+    steps, micro = tcfg.steps, tcfg.microbatches
+    n = cfg.num_layers * micro * steps
+    want = {"ssd_scan": 2 * sk.LAUNCHES_PER_CALL * n,
+            "ssd_scan_bwd": sk.LAUNCHES_PER_BWD * n}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"16b: launches {launches}, expected {want} "
+                             "and nothing else")
+    if not all(np.isfinite(hist)):
+        raise AssertionError(f"16b: a loss is not finite: {hist}")
+    tokens = tcfg.global_batch * tcfg.seq_len
+    steady = float(np.mean(secs[1:]))
+    print(f"16b: Trainer.run {steps} steps of {tokens} tokens ({micro} "
+          f"microbatches of {tcfg.global_batch // micro} x {tcfg.seq_len}) in "
+          f"{wall:.2f} s; losses {', '.join(f'{x:.4f}' for x in hist)}; step "
+          f"ms {', '.join(f'{x * 1e3:.1f}' for x in secs)} (host clock, "
+          f"synchronised; steps 2-{steps} mean {steady * 1e3:.1f} ms, "
+          f"{tokens / steady:.0f} tokens/s); peak {peak:.2f} GB "
+          f"(max_memory_allocated); launches ssd_scan "
+          f"{launches['ssd_scan']}, ssd_scan_bwd {launches['ssd_scan_bwd']}",
+          flush=True)
+    batch = device_put_batch(batch_for_model(cfg, trainer.dcfg, steps), dev)
+    trainer.train_step(state.params, state.opt_state, batch)
+    torch.cuda.synchronize()
+    mamba_step_profile(trainer, state, batch)
+    del batch
+    served = cast_params(state.params, torch.bfloat16)
+    del state
+    torch.cuda.empty_cache()
+    engine, decode_s = timed_engine(cfg, served, dev, num_replicas=1,
+                                    c_max=256)
+    reqs = short_requests(np.random.default_rng(seed), cfg.vocab_size, 6,
+                          (24, 64), (4, 12))
+    serve_and_count("16b serve of the trained weights", cfg, engine,
+                    decode_s, reqs, counters, reset_counters, 0)
+    del engine, served
+    torch.cuda.empty_cache()
+    return launches
+
+
+def jamba_train_path(dev, seed: int, counters, reset_counters) -> dict:
+    """16c: jamba-1.5-large-398b's smoke config (attention, MoE and Mamba
+    with two groups; full width does not fit one card) in float32: the
+    gradient gate at ``MAMBA_TRAIN_GRAD_TOL``, then 2 steps of
+    ``Trainer.run`` with exact launch counts; returns them."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import batch_for_model, device_put_batch
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_smoke_config("jamba-1.5-large-398b").with_(dtype="float32")
+    tcfg = TrainerConfig(seq_len=256, global_batch=4, microbatches=2,
+                         steps=2, ckpt_every=0, log_every=1)
+    trainer = Trainer(cfg, tcfg, device=dev)
+    state = trainer.init_state(seed)
+    batch = device_put_batch(batch_for_model(cfg, trainer.dcfg, 0), dev)
+    worst = mamba_grad_gate(cfg, tcfg, dev, state.params, {
+        k: v[:2] for k, v in batch.items()}, "float32", tag="16c")
+    reset_counters()
+    state = trainer.run(state)
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    kinds = [d[0] for d in M.layer_descs(cfg)]
+    mamba = kinds.count("mamba")
+    n = tcfg.microbatches * tcfg.steps
+    want = {"ssd_scan": 2 * sk.LAUNCHES_PER_CALL * mamba * n,
+            "ssd_scan_bwd": sk.LAUNCHES_PER_BWD * mamba * n,
+            "flash_attention": 2 * (len(kinds) - mamba) * n,
+            "flash_attention_bwd": 2 * (len(kinds) - mamba) * n}
+    hist = state.metrics["loss_history"]
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise AssertionError(f"16c: launches {launches}, expected {want} "
+                             "and nothing else")
+    if not all(np.isfinite(hist)):
+        raise AssertionError(f"16c: a loss is not finite: {hist}")
+    print(f"16c: {cfg.name} smoke config ({cfg.num_layers} layers {kinds}, "
+          f"d_model {cfg.d_model}, {cfg.ssm_groups} groups, "
+          f"{cfg.num_experts} experts), float32: gradient gate {worst:.4g} "
+          f"(limit {MAMBA_TRAIN_GRAD_TOL['float32']:g}); {tcfg.steps} steps, "
+          f"losses {', '.join(f'{x:.4f}' for x in hist)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3367,6 +3861,7 @@ def main() -> int:
                 "flash_attention": fa.launches,
                 "flash_attention_bwd": fa.bwd_launches,
                 "ssd_scan": sk.launches,
+                "ssd_scan_bwd": sk.bwd_launches,
                 "live_admission": lk.launches}
 
     def reset_counters():
@@ -3868,10 +4363,32 @@ def main() -> int:
     clock.done("15c 10M model trained, preempted and resumed")
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")
 
+    # -- 16. the chunk scan's backward: the kernels against their plain
+    # versions, mamba2-130m trained at full width and depth and served,
+    # Jamba's shape trained
+    t16 = time.perf_counter()
+    rows["ssd_scan_bwd"] = dict(
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:22 (its backward: "
+                 "JAX differentiates ssd_chunk_scan, "
+                 "src/repro/models/mamba2.py:93, with XLA)",
+        library_ms=None, **ssd_bwd_phase(dev, args.seed))
+    clock.done("16a ssd_scan backward kernels")
+    launches = mamba_train_path(dev, args.seed, counters, reset_counters)
+    rows["ssd_scan_bwd"]["launches"] = launches["ssd_scan_bwd"]
+    rows["ssd_scan"]["launches_phase_16b"] = launches["ssd_scan"]
+    clock.done("16b mamba2-130m training path")
+    launches = jamba_train_path(dev, args.seed, counters, reset_counters)
+    rows["ssd_scan_bwd"]["launches_phase_16c"] = launches["ssd_scan_bwd"]
+    rows["ssd_scan"]["launches_phase_16c"] = launches["ssd_scan"]
+    clock.done("16c jamba smoke config trained")
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
+
     print(f"chip_smoke: all phases passed in {clock.total():.1f} s")
     order = ("bfjs", "vqs", "vqs_bf", "bfjs_mr", "best_fit",
              "decode_attention", "flash_attention", "flash_attention_bwd",
-             "ssd_scan", "live_admission")
+             "ssd_scan", "ssd_scan_bwd", "live_admission")
     print(json.dumps({"kernels": [rows[k] for k in order], "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

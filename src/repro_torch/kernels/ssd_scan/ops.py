@@ -1,5 +1,7 @@
 """Public entry point of the SSD chunk scan: the three stage kernels for
-CUDA tensors, their plain version (``ref.ssd_ref``) for CPU tensors."""
+CUDA tensors, their plain version (``ref.ssd_ref``) for CPU tensors; with
+a gradient asked for, :class:`ssd_scan.SSDScan` (the backward kernels on
+CUDA, the plain stages on the CPU)."""
 from __future__ import annotations
 
 from .ssd_scan import ssd_scan_cuda

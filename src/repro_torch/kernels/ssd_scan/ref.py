@@ -10,6 +10,25 @@ and the plain version of the whole call.  ``chunk_states_ref``,
 kernel's three stages (``csrc/ssd_scan.cu``), with its decays formed from
 per-tile sums; ``ssd_stages_ref`` composes them.  ``split_tf32`` cuts a
 float32 tensor into the two TF32 parts the kernel multiplies.
+
+The backward (``csrc/ssd_scan_bwd.cu``) has its plain stages too:
+``chunk_dstates_ref``, ``state_pass_bwd_ref``, ``chunk_scan_bwd_ref`` and
+``group_sum_ref``, composed by ``ssd_bwd_ref``.  For one (b, h) and chunk
+c, with S_c the state the chunk starts from and Q_c the gradient reaching
+the state it ends in:
+
+    dS_c  = sum_i exp(cs_i) dy_i C_i^T
+    R_c   = dS_c + exp(T_c) R_{c+1}, R_nc = 0;  Q_c = R_{c+1}
+    dT_c  = exp(T_c) <R_{c+1}, S_c>
+    dx_j  = sum_{i>=j} (C_i.B_j) L_ij dy_i + exp(T_c - cs_j) Q_c B_j
+    dB_j  = sum_{i>=j} (dy_i.x_j) L_ij C_i + exp(T_c - cs_j) Q_c^T x_j
+    dC_i  = sum_{j<=i} (dy_i.x_j) L_ij B_j + exp(cs_i) S_c^T dy_i
+    dcs_i = sum_j M_ij - sum_k M_ki + dy_i.y_off_i - W_i,
+            M_ij = (C_i.B_j)(dy_i.x_j) L_ij, W_j = exp(T_c - cs_j) x_j.Q_c B_j,
+            and dcs_last += sum_j W_j + dT_c
+    da_k  = sum_{i>=k} dcs_i
+
+with T_c = cs_last and L_ij = exp(cs_i - cs_j) for i >= j.
 """
 from __future__ import annotations
 
@@ -138,3 +157,106 @@ def ssd_stages_ref(xdt, Bm, Cm, a):
     states, totals = chunk_states_ref(xdt, Bm, a)
     y = chunk_scan_ref(xdt, Bm, Cm, a, state_pass_ref(states, totals))
     return y.to(xdt.dtype)
+
+
+def _decays(a, Lc):
+    """Per-tile decay pieces of a chunk: ``seg`` (..., Lc, Lc) = cs_i -
+    cs_j (meaningful for i >= j), ``cs`` (..., Lc) and ``rest`` (..., Lc)
+    = T - cs_j, each from the tile sums (``_tile_sums``), never as the
+    difference of two long cumsums."""
+    loc, tot = _tile_sums(a)
+    span = _spans(tot)                                 # (..., nt, nt)
+    tile = torch.arange(Lc, device=a.device) // TILE
+    loc = loc[..., :Lc]
+    between = span[..., tile[:, None], tile[None, :]]
+    seg = loc[..., :, None] - loc[..., None, :] + between
+    cs = span[..., tile, 0] + loc
+    after = tot.flip(-1).cumsum(-1).flip(-1)           # a over tiles t..nt-1
+    rest = after[..., tile] - loc
+    return seg, cs, rest
+
+
+def _causal_decay(seg: torch.Tensor) -> torch.Tensor:
+    """L_ij = exp(seg_ij) at or below the diagonal, 0 above it (a select:
+    above it the exponent may overflow)."""
+    Lc = seg.shape[-1]
+    causal = torch.ones((Lc, Lc), dtype=torch.bool, device=seg.device).tril()
+    return torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)
+
+
+def chunk_dstates_ref(dy, Cm, a):
+    """Backward stage 1: dS (B, H, nc, hd, N) float32, the gradient that
+    chunk c's output sends to the state the chunk starts from,
+    dS_c = dy^T (C o exp(cs)) per chunk."""
+    H, Lc = dy.shape[1], dy.shape[3]
+    Ch = _heads(Cm.float(), H // Cm.shape[1])
+    _, cs, _ = _decays(a, Lc)
+    return torch.einsum("bhclp,bhcln->bhcpn", dy.float(),
+                        Ch * torch.exp(cs)[..., None])
+
+
+def state_pass_bwd_ref(dstates, starts, totals):
+    """Backward stage 2, the reverse state pass: Q (B, H, nc, hd, N), the
+    gradient reaching the state chunk c ends in (Q_c = R_{c+1}, R_nc = 0,
+    R_c = dS_c + exp(T_c) R_{c+1}), and dT (B, H, nc) = exp(T_c)
+    <R_{c+1}, S_c>, the gradient of the chunk's total of a through the
+    carried state."""
+    R = torch.zeros_like(dstates[:, :, 0])
+    Q, dT = [], []
+    for c in reversed(range(dstates.shape[2])):
+        k = torch.exp(totals[:, :, c])
+        Q.append(R)
+        dT.append(k * (R * starts[:, :, c].float()).sum((-2, -1)))
+        R = dstates[:, :, c] + k[..., None, None] * R
+    return torch.stack(Q[::-1], dim=2), torch.stack(dT[::-1], dim=2)
+
+
+def chunk_scan_bwd_ref(xdt, Bm, Cm, a, starts, Q, dT, dy):
+    """Backward stage 3: per head, dx (B, H, nc, Lc, hd), dB and dC (B, H,
+    nc, Lc, N) and da (B, H, nc, Lc), float32, from the formulas in the
+    module's docstring; dcs through the rows and columns of M, as they
+    are written."""
+    H, Lc = xdt.shape[1], xdt.shape[3]
+    x, g = xdt.float(), dy.float()
+    Bh = _heads(Bm.float(), H // Bm.shape[1])
+    Ch = _heads(Cm.float(), H // Cm.shape[1])
+    S = starts.float()
+    seg, cs, rest = _decays(a, Lc)
+    L = _causal_decay(seg)                             # [i, j]
+    cb = torch.einsum("bhcin,bhcjn->bhcij", Ch, Bh)
+    gx = torch.einsum("bhcip,bhcjp->bhcij", g, x)
+    wq = torch.exp(rest)[..., None]                    # exp(T - cs_j)
+    wc = torch.exp(cs)[..., None]                      # exp(cs_i)
+    QB = torch.einsum("bhcpn,bhcjn->bhcjp", Q, Bh)     # Q_c B_j
+    dx = torch.einsum("bhcij,bhcip->bhcjp", cb * L, g) + wq * QB
+    dB = torch.einsum("bhcij,bhcin->bhcjn", gx * L, Ch) + \
+        wq * torch.einsum("bhcpn,bhcjp->bhcjn", Q, x)
+    dC = torch.einsum("bhcij,bhcjn->bhcin", gx * L, Bh) + \
+        wc * torch.einsum("bhcpn,bhcip->bhcin", S, g)
+    M = cb * gx * L
+    y_off = wc * torch.einsum("bhcin,bhcpn->bhcip", Ch, S)
+    W = (wq * QB * x).sum(-1)
+    dcs = M.sum(-1) - M.sum(-2) + (g * y_off).sum(-1) - W
+    dcs[..., -1] += W.sum(-1) + dT
+    da = dcs.flip(-1).cumsum(-1).flip(-1)
+    return dx, dB, dC, da
+
+
+def group_sum_ref(t: torch.Tensor, G: int) -> torch.Tensor:
+    """(B, H, ...) per head -> (B, G, ...) per group: the heads h with
+    h // (H // G) = g summed, in order."""
+    B, H = t.shape[:2]
+    return t.reshape(B, G, H // G, *t.shape[2:]).sum(2)
+
+
+def ssd_bwd_ref(xdt, Bm, Cm, a, starts, dy):
+    """The backward of the chunk scan from a zero state: the gradients
+    (dxdt, dBm, dCm, da) of the loss for the output cotangent ``dy`` (B,
+    H, nc, Lc, hd), float32, dBm and dCm per group.  ``starts`` (B, H,
+    nc, hd, N) is what the forward's state pass writes (the state each
+    chunk starts from)."""
+    G = Bm.shape[1]
+    _, totals = chunk_states_ref(xdt, Bm, a)
+    Q, dT = state_pass_bwd_ref(chunk_dstates_ref(dy, Cm, a), starts, totals)
+    dx, dB, dC, da = chunk_scan_bwd_ref(xdt, Bm, Cm, a, starts, Q, dT, dy)
+    return dx, group_sum_ref(dB, G), group_sum_ref(dC, G), da

@@ -1,11 +1,19 @@
-"""ctypes wrappers of the SSD chunk-scan kernels (``csrc/ssd_scan.cu``).
+"""ctypes wrappers of the SSD chunk-scan kernels (``csrc/ssd_scan.cu``,
+forward; ``csrc/ssd_scan_bwd.cu``, backward).
 
-The call runs in three launches: :func:`chunk_states_cuda`,
+The forward runs in three launches: :func:`chunk_states_cuda`,
 :func:`state_pass_cuda` and :func:`chunk_scan_cuda`, composed by
-:func:`ssd_scan_cuda`.  The stage wrappers take CUDA tensors only and
-launch their kernel (or raise); :func:`ssd_scan_cuda` runs the plain
-version (``ref.ssd_ref``) for CPU tensors.  ``launches`` counts kernel
-launches only, ``LAUNCHES_PER_CALL`` a call."""
+:func:`ssd_scan_cuda`.  The backward runs in four:
+:func:`chunk_dstates_cuda`, :func:`state_pass_bwd_cuda`,
+:func:`chunk_scan_bwd_cuda` and :func:`group_sum_cuda`, composed by
+:func:`ssd_scan_bwd_cuda`.  :class:`SSDScan` ties them together for
+autograd, and :func:`ssd_scan_cuda` goes through it whenever a gradient is
+asked for.  The stage wrappers take CUDA tensors only and launch their
+kernel (or raise); :class:`SSDScan` runs the plain stages (``ref.py``) for
+CPU tensors, and :func:`ssd_scan_cuda` without a gradient the plain
+recurrence (``ref.ssd_ref``).  ``launches`` and ``bwd_launches`` count
+kernel launches only, ``LAUNCHES_PER_CALL`` and ``LAUNCHES_PER_BWD`` a
+call."""
 from __future__ import annotations
 
 import ctypes
@@ -15,10 +23,14 @@ import torch.nn.functional as F
 
 from .. import build
 from ..common import LaunchCounter, refuse_grad
+from . import ref
 from .ref import ssd_ref
 
 launches = LaunchCounter()
+bwd_launches = LaunchCounter()
 LAUNCHES_PER_CALL = 3
+#: dstates, the reverse state pass, the chunk scan backward, the group sum.
+LAUNCHES_PER_BWD = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DTYPES = (torch.float32, torch.bfloat16)
@@ -37,6 +49,19 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_state_pass_launch.argtypes = [_P, _P, _I, _I, _I, _P]
     lib.ssd_chunk_scan_launch.restype = ctypes.c_int
     lib.ssd_chunk_scan_launch.argtypes = [_P] * 6 + [_I] * 8 + [_P, _P]
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("ssd_scan_bwd")
+    lib.ssd_chunk_dstates_launch.restype = ctypes.c_int
+    lib.ssd_chunk_dstates_launch.argtypes = [_P] * 4 + [_I] * 8 + [_P, _P]
+    lib.ssd_state_pass_bwd_launch.restype = ctypes.c_int
+    lib.ssd_state_pass_bwd_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+    lib.ssd_chunk_scan_bwd_launch.restype = ctypes.c_int
+    lib.ssd_chunk_scan_bwd_launch.argtypes = [_P] * 13 + [_I] * 8 + [_P, _P]
+    lib.ssd_group_sum_launch.restype = ctypes.c_int
+    lib.ssd_group_sum_launch.argtypes = [_P] * 4 + [_I] * 7 + [_P, _P]
     return lib
 
 
@@ -104,11 +129,18 @@ def operand(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if bulk_ready(t) else t.contiguous()
 
 
+def _model_layout(shape, dtype, device, order) -> torch.Tensor:
+    """A tensor of ``shape`` stored in the dimension order ``order`` (the
+    model's layout: chunks before heads)."""
+    store = torch.empty([shape[i] for i in order], dtype=dtype,
+                        device=device)
+    return store.permute([order.index(i) for i in range(len(shape))])
+
+
 def _model_layout_y(B, H, nc, Lc, hd, dtype, device) -> torch.Tensor:
     """An output (B, H, nc, Lc, hd) stored as (B, nc, Lc, H, hd), the
     model's layout, so that ``mamba_apply`` reads it with no copy."""
-    return torch.empty((B, nc, Lc, H, hd), dtype=dtype,
-                       device=device).permute(0, 3, 1, 2, 4)
+    return _model_layout((B, H, nc, Lc, hd), dtype, device, (0, 2, 3, 1, 4))
 
 
 def _check_stage(xdt, Bm, Cm, a) -> None:
@@ -132,13 +164,13 @@ def _check_stage(xdt, Bm, Cm, a) -> None:
                          f"{MAX_CHUNK}, got hd={hd}, N={N}, Lc={xdt.shape[3]}")
 
 
-#: Why a CUDA call refuses grad (``common.refuse_grad``).
-NO_BACKWARD = ("the ssd_scan kernels have no backward yet (ROADMAP item "
-               "11j): Mamba2 and Jamba train on the CPU only until then")
+#: Why a stage wrapper refuses grad (``common.refuse_grad``).
+STAGE_NO_GRAD = ("an ssd_scan stage kernel has no backward of its own; "
+                 "ssd_scan_cuda is the differentiable entry (SSDScan)")
 
 
 def _check_cuda(t: torch.Tensor, *inputs) -> None:
-    refuse_grad(NO_BACKWARD, t, *inputs)
+    refuse_grad(STAGE_NO_GRAD, t, *inputs)
     if t.device.type != "cuda":
         raise ValueError(f"the stage kernels run on CUDA tensors, got "
                          f"{t.device}")
@@ -226,36 +258,260 @@ def chunk_scan_cuda(xdt, Bm, Cm, a, starts, out=None):
     return out
 
 
+def _operands(xdt, Bm, Cm, a):
+    """The kernels' operands: x float32 with hd zero-padded to whole
+    16-byte rows, a float32, B and C with N padded likewise (views where
+    the kernels can read them, else copies)."""
+    hd_p = padded_width(xdt.shape[-1], torch.float32)
+    N_p = padded_width(Bm.shape[-1], Bm.dtype)
+    return (operand(xdt.float(), hd_p), operand(Bm, N_p), operand(Cm, N_p),
+            a.float())
+
+
+def _forward(x, b, c, a, out) -> tuple[torch.Tensor, torch.Tensor]:
+    """The three forward stages on padded operands, y into ``out``
+    (float32); returns the states the chunks start from and the chunks'
+    totals of a.  Kernels on CUDA tensors, the plain stages on the CPU."""
+    if x.device.type == "cpu":
+        states, totals = ref.chunk_states_ref(x, b, a)
+        starts = ref.state_pass_ref(states, totals)
+        out.copy_(ref.chunk_scan_ref(x, b, c, a, starts))
+        return starts, totals
+    states, totals = chunk_states_cuda(x, b, a)
+    starts = state_pass_cuda(states, totals)
+    chunk_scan_cuda(x, b, c, a, starts, out=out)
+    return starts, totals
+
+
 def ssd_scan_cuda(xdt, Bm, Cm, a) -> torch.Tensor:
     """The SSD chunk scan from a zero state: xdt (B, H, nc, Lc, hd), Bm, Cm
     (B, G, nc, Lc, N) with head h reading group h // (H // G), a (B, H, nc,
     Lc) -> y (B, H, nc, Lc, hd) in xdt's dtype, stored in the model's
     (B, nc, Lc, H, hd) layout.  Inputs are read through their strides;
     bfloat16 x and a are widened to float32 (exactly) and hd and N are
-    zero-padded to whole 16-byte rows, each by a copy, where needed."""
+    zero-padded to whole 16-byte rows, each by a copy, where needed.
+    Differentiable: with grad on and an input that requires it, the call
+    goes through :class:`SSDScan` (the backward kernels on CUDA, the plain
+    stages on the CPU); otherwise CPU tensors run ``ref.ssd_ref``."""
     check_inputs(xdt, Bm, Cm, a)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xdt, Bm, Cm, a)):
+        return SSDScan.apply(xdt, Bm, Cm, a)
     if xdt.device.type == "cpu":
         return ssd_ref(xdt, Bm, Cm, a)
-    refuse_grad(NO_BACKWARD, xdt, Bm, Cm, a)
+    return _scan(xdt, Bm, Cm, a)[0]
+
+
+def _scan(xdt, Bm, Cm, a):
+    """The forward on any device: y in the model's layout, and what the
+    backward reads, (x, b, c, a, starts, totals, out), on padded operands
+    (``out`` the float32 y, hd padded)."""
     B, H, nc, Lc, hd = xdt.shape
     N = Bm.shape[-1]
-    if hd > MAX_HEAD_DIM or N > MAX_STATE or Lc > MAX_CHUNK:
-        raise NotImplementedError(
-            f"ssd_scan kernel takes hd <= {MAX_HEAD_DIM}, N <= {MAX_STATE} "
-            f"and Lc <= {MAX_CHUNK}, got hd={hd}, N={N}, Lc={Lc}")
-    if xdt.device.type != "cuda":
-        raise ValueError(f"ssd_scan kernel runs on CUDA tensors, got "
-                         f"{xdt.device}")
+    if xdt.device.type != "cpu":
+        if hd > MAX_HEAD_DIM or N > MAX_STATE or Lc > MAX_CHUNK:
+            raise NotImplementedError(
+                f"ssd_scan kernel takes hd <= {MAX_HEAD_DIM}, N <= "
+                f"{MAX_STATE} and Lc <= {MAX_CHUNK}, got hd={hd}, N={N}, "
+                f"Lc={Lc}")
+        if xdt.device.type != "cuda":
+            raise ValueError(f"ssd_scan kernel runs on CUDA tensors, got "
+                             f"{xdt.device}")
     y = _model_layout_y(B, H, nc, Lc, hd, xdt.dtype, xdt.device)
-    if y.numel() == 0:
-        return y
-    hd_p, N_p = padded_width(hd, torch.float32), padded_width(N, Bm.dtype)
-    x, a = operand(xdt.float(), hd_p), a.float()
-    b, c = operand(Bm, N_p), operand(Cm, N_p)
+    x, b, c, af = _operands(xdt, Bm, Cm, a)
+    hd_p = x.shape[-1]
     out = y if hd_p == hd and y.dtype == torch.float32 else \
         _model_layout_y(B, H, nc, Lc, hd_p, torch.float32, xdt.device)
-    states, totals = chunk_states_cuda(x, b, a)
-    chunk_scan_cuda(x, b, c, a, state_pass_cuda(states, totals), out=out)
+    if y.numel() == 0:
+        return y, None
+    starts, totals = _forward(x, b, c, af, out)
     if out is not y:
         y.copy_(out[..., :hd])
-    return y
+    return y, (x, b, c, af, starts, totals, out)
+
+
+class SSDScan(torch.autograd.Function):
+    """The chunk scan with its hand-written backward: forward runs the
+    three stages and saves the padded operands, the states the chunks
+    start from (stage 2's output), the chunks' totals of a and the
+    float32 output; backward runs :func:`ssd_scan_bwd_cuda` on them (on
+    CPU tensors, the plain ``ref.ssd_bwd_ref``) and returns dxdt, dBm, dCm
+    and da in the inputs' dtypes and shapes, the padding undone."""
+
+    @staticmethod
+    def forward(ctx, xdt, Bm, Cm, a):
+        y, saved = _scan(xdt, Bm, Cm, a)
+        ctx.meta = (xdt.dtype, Bm.dtype, a.dtype, xdt.shape[-1], Bm.shape[-1],
+                    saved is None)
+        if saved is not None:
+            ctx.save_for_backward(*saved)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xdt_dtype, b_dtype, a_dtype, hd, N, empty = ctx.meta
+        if empty:                   # an empty output: zero gradients
+            return None, None, None, None
+        x, b, c, a, starts, totals, out = ctx.saved_tensors
+        g = operand(dy.float(), x.shape[-1])
+        if x.device.type == "cpu":
+            dx, dB, dC, da = ref.ssd_bwd_ref(x, b, c, a, starts, g)
+        else:
+            dx, dB, dC, da = ssd_scan_bwd_cuda(x, b, c, a, g, out, starts,
+                                               totals)
+        return (dx[..., :hd].to(xdt_dtype), dB[..., :N].to(b_dtype),
+                dC[..., :N].to(b_dtype), da.to(a_dtype))
+
+
+def _check_bwd(x, b, c, a, dy, y) -> None:
+    _check_stage(x, b, c, a)
+    for name, t in (("dy", dy), ("y", y)):
+        if t.shape != x.shape or t.dtype != torch.float32 or \
+                not bulk_ready(t) or t.device != x.device:
+            raise ValueError(f"{name} must be float32 {tuple(x.shape)} on "
+                             f"{x.device}, rows read by bulk copies; got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def chunk_dstates_cuda(dy, Cm, a):
+    """Backward stage 1: dS (B, H, nc, hd, N) float32, dS_c = dy^T (C o
+    exp(cs)), a block per (b, h, c).  dy float32 with rows of whole
+    16-byte units, like the forward's x."""
+    _check_stage(dy, Cm, Cm, a)
+    _check_cuda(dy, Cm, a)
+    B, H, nc, Lc, hd = dy.shape
+    G, N = Cm.shape[1], Cm.shape[-1]
+    dstates = torch.empty((B, H, nc, hd, N), dtype=torch.float32,
+                          device=dy.device)
+    lib = _bwd_lib()
+    st = (ctypes.c_longlong * 12)(*(strides(dy) + strides(Cm) + strides(a)))
+    with torch.cuda.device(dy.device):
+        err = lib.ssd_chunk_dstates_launch(
+            dy.data_ptr(), Cm.data_ptr(), a.data_ptr(), dstates.data_ptr(),
+            B, H, G, nc, Lc, hd, N, int(Cm.dtype == torch.bfloat16), st,
+            torch.cuda.current_stream(dy.device).cuda_stream)
+    build.check(lib, err, "ssd_scan_bwd chunk_dstates launch")
+    bwd_launches.add()
+    return dstates
+
+
+def state_pass_bwd_cuda(dstates, starts, totals):
+    """Backward stage 2, the reverse state pass, a block per (b, h):
+    ``dstates`` (B, H, nc, hd, N) float32 holds dS on entry and Q on
+    return, Q_c the gradient reaching the state chunk c ends in; returns
+    (Q, end), end (B, H, nc) = <Q_c, S_{c+1}>, S_{c+1} = starts[c + 1] (0
+    for the last chunk)."""
+    B, H, nc, hd, N = dstates.shape
+    for t in (dstates, starts):
+        if t.dtype != torch.float32 or not t.is_contiguous() or \
+                t.shape != dstates.shape or t.device != dstates.device:
+            raise ValueError("the reverse state pass takes contiguous "
+                             "float32 dstates and starts (B, H, nc, hd, N) "
+                             "on one device")
+    if totals.shape != (B, H, nc) or totals.dtype != torch.float32 or \
+            (hd * N) % 4 or hd * N > 8192:
+        raise ValueError("the reverse state pass takes float32 totals (B, "
+                         "H, nc) and hd * N a multiple of 4 up to 8192")
+    _check_cuda(dstates, starts, totals)
+    end = torch.empty((B, H, nc), dtype=torch.float32, device=dstates.device)
+    tot = totals.contiguous()
+    lib = _bwd_lib()
+    with torch.cuda.device(dstates.device):
+        err = lib.ssd_state_pass_bwd_launch(
+            dstates.data_ptr(), starts.data_ptr(), tot.data_ptr(),
+            end.data_ptr(), B * H, nc, hd * N,
+            torch.cuda.current_stream(dstates.device).cuda_stream)
+    build.check(lib, err, "ssd_scan_bwd state_pass launch")
+    bwd_launches.add()
+    return dstates, end
+
+
+def state_width(N: int) -> int:
+    """Columns of the per-head rows of dB and dC that stage 3 writes: the
+    N of the kernel instance (32, 64 or 128)."""
+    return 32 if N <= 32 else 64 if N <= 64 else 128
+
+
+def chunk_scan_bwd_cuda(x, Bm, Cm, a, dy, y, starts, q, end):
+    """Backward stage 3, a block per (b, h, c): dx (like x, float32, in
+    the model's layout), dB and dC per head (B, H, nc, Lc, state_width(N))
+    float32 (columns past N unspecified), and da (like a, float32, in the
+    model's layout).  ``y`` is the forward's float32 output, ``starts``
+    and ``q`` (B, H, nc, hd, N) stages 2's, ``end`` the reverse pass's
+    end-state products."""
+    _check_bwd(x, Bm, Cm, a, dy, y)
+    B, H, nc, Lc, hd = x.shape
+    G, N = Bm.shape[1], Bm.shape[-1]
+    for t in (starts, q):
+        if t.shape != (B, H, nc, hd, N) or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"starts and q must be contiguous float32 "
+                             f"{(B, H, nc, hd, N)}")
+    if end.shape != (B, H, nc) or end.dtype != torch.float32:
+        raise ValueError(f"end must be float32 {(B, H, nc)}")
+    _check_cuda(x, Bm, Cm, a, dy, y, starts, q, end)
+    dev = x.device
+    dx = _model_layout_y(B, H, nc, Lc, hd, torch.float32, dev)
+    da = _model_layout((B, H, nc, Lc), torch.float32, dev, (0, 2, 3, 1))
+    width = state_width(N)
+    dBh = torch.empty((B, H, nc, Lc, width), dtype=torch.float32, device=dev)
+    dCh = torch.empty_like(dBh)
+    e = end.contiguous()
+    lib = _bwd_lib()
+    st = (ctypes.c_longlong * 32)(*(
+        strides(x) + strides(Bm) + strides(Cm) + strides(a) + strides(dy)
+        + strides(y) + strides(dx) + strides(da)))
+    with torch.cuda.device(dev):
+        err = lib.ssd_chunk_scan_bwd_launch(
+            x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), a.data_ptr(),
+            dy.data_ptr(), y.data_ptr(), starts.data_ptr(), q.data_ptr(),
+            e.data_ptr(), dx.data_ptr(), dBh.data_ptr(), dCh.data_ptr(),
+            da.data_ptr(), B, H, G, nc, Lc, hd, N,
+            int(Bm.dtype == torch.bfloat16), st,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "ssd_scan_bwd chunk_scan launch")
+    bwd_launches.add()
+    return dx, dBh, dCh, da
+
+
+def group_sum_cuda(dBh, dCh, G: int, N: int, dtype):
+    """Backward stage 4: dB and dC (B, G, nc, Lc, N) in ``dtype``, in the
+    model's layout, each the sum over its group's heads, in head order, of
+    stage 3's per-head rows."""
+    B, H, nc, Lc, width = dBh.shape
+    if dCh.shape != dBh.shape or dBh.dtype != torch.float32 or \
+            dCh.dtype != torch.float32 or not dBh.is_contiguous() or \
+            not dCh.is_contiguous() or width != state_width(N) or \
+            G < 1 or H % G or dtype not in DTYPES:
+        raise ValueError("group sum takes stage 3's contiguous float32 "
+                         f"rows of width state_width(N), G dividing H and "
+                         f"an output dtype of {DTYPES}")
+    _check_cuda(dBh, dCh)
+    dev = dBh.device
+    order = (0, 2, 3, 1, 4)
+    dB, dC = (_model_layout((B, G, nc, Lc, N), dtype, dev, order)
+              for _ in range(2))
+    lib = _bwd_lib()
+    st = (ctypes.c_longlong * 8)(*(strides(dB) + strides(dC)))
+    with torch.cuda.device(dev):
+        err = lib.ssd_group_sum_launch(
+            dBh.data_ptr(), dCh.data_ptr(), dB.data_ptr(), dC.data_ptr(), B,
+            H, G, nc, Lc, N, int(dtype == torch.bfloat16), st,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "ssd_scan_bwd group_sum launch")
+    bwd_launches.add()
+    return dB, dC
+
+
+def ssd_scan_bwd_cuda(x, Bm, Cm, a, dy, y, starts, totals):
+    """The backward of the chunk scan on the forward's padded operands
+    (``_operands``): dy and y (B, H, nc, Lc, hd) float32, ``starts`` and
+    ``totals`` as the forward's stages 1 and 2 left them.  Four launches;
+    returns (dx, dB, dC, da), dx and da float32, dB and dC in Bm's dtype,
+    per group.  The plain version is ``ref.ssd_bwd_ref``."""
+    dstates = chunk_dstates_cuda(dy, Cm, a)
+    q, end = state_pass_bwd_cuda(dstates, starts, totals)
+    dx, dBh, dCh, da = chunk_scan_bwd_cuda(x, Bm, Cm, a, dy, y, starts, q,
+                                           end)
+    dB, dC = group_sum_cuda(dBh, dCh, Bm.shape[1], Bm.shape[-1], Bm.dtype)
+    return dx, dB, dC, da

@@ -7,7 +7,10 @@ kernels (``kernels/ssd_scan``) views of the model's ``(B, nc, Lc, H, P)``
 layout in their ``(B, H, nc, Lc, P)`` order (B and C per group, ``(B, G,
 nc, Lc, N)``, in ``cfg.dtype``), which they read through the strides; they
 run from a zero state and drop the final state, which is all the JAX
-``mamba_apply`` needs.  ``use_kernels=False`` runs :func:`ssd_chunk_scan`,
+``mamba_apply`` needs.  With a gradient asked for, the call goes through
+``SSDScan``, whose backward runs the four backward kernels (the plain
+stages on the CPU); under remat the forward's three launches run again in
+the backward pass.  ``use_kernels=False`` runs :func:`ssd_chunk_scan`,
 the JAX package's jnp form, instead.  Decode is the O(1)-state recurrence,
 plain PyTorch (the JAX package has no kernel for it), and updates the cache
 in place.  Rounding points are the JAX package's: projections and the causal

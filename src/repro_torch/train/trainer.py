@@ -11,8 +11,8 @@ argument has no counterpart yet (ROADMAP item 11h).
 Every step is a pure function of the state and the step's batch, so a run
 resumed from a checkpoint repeats an uninterrupted one bit for bit as long
 as the device's operations are deterministic.  On the CPU they are; the
-flash attention kernels use no atomics.  On a card, PyTorch guarantees
-it only under ``torch.use_deterministic_algorithms(True)`` (with
+flash attention and ssd_scan kernels use no atomics.  On a card, PyTorch
+guarantees it only under ``torch.use_deterministic_algorithms(True)`` (with
 ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts); a resumed run on an
 H100 was bit-identical with and without it (PERF.md, section 6).
 """
@@ -30,7 +30,6 @@ from ..data.pipeline import DataConfig, batch_for_model, device_put_batch
 from ..device import resolve_device
 from ..models import model as M
 from ..models.config import ModelConfig
-from ..models.model import layer_descs
 from .optimizer import AdamW, AdamWState, cosine_schedule, tree_map
 
 
@@ -74,20 +73,14 @@ class TrainState:
 
 class Trainer:
     """``Trainer(cfg, tcfg, device=None)``: ``None`` means the card and
-    raises without one.  On a card a model with a Mamba mixer is refused
-    here, before any step: the ssd_scan kernels have no backward yet
-    (ROADMAP item 11j)."""
+    raises without one.  Every architecture trains on either device: the
+    flash and ssd_scan kernels carry their gradients through hand-written
+    backward kernels on a card."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig, device=None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and any(
-                d[0] == "mamba" for d in layer_descs(cfg)):
-            raise NotImplementedError(
-                f"{cfg.name} has Mamba mixers, and the ssd_scan kernels have "
-                "no backward yet (ROADMAP item 11j): Mamba2 and Jamba train "
-                "on the CPU only until then (device=\"cpu\")")
         if tcfg.global_batch % tcfg.microbatches:
             raise ValueError(f"global_batch {tcfg.global_batch} does not "
                              f"split into {tcfg.microbatches} microbatches")
@@ -105,7 +98,7 @@ class Trainer:
                       use_kernels: bool = True):
         """(loss, grads) of ``M.loss_fn`` on one batch; a parameter the
         loss does not reach gets ``None``.  ``use_kernels=False`` runs the
-        attention kernels' plain versions."""
+        attention kernels' and the chunk scan's plain versions."""
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
             loss, _ = M.loss_fn(leaves, self.cfg, batch,

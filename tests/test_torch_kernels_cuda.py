@@ -1283,6 +1283,180 @@ def test_mamba_model_on_card_kernel_equals_plain(cuda, dtype):
     assert float((full - rec).abs().max()) <= tol_rec * scale
 
 
+SSD_BWD_CASES = [
+    # (B, H, G, nc, Lc, hd, N, B and C dtype, model layout): small widths,
+    # two groups with ragged Lc, hd and N (the wrapper pads hd and N), a
+    # chunk shorter than a tile, the longest chunk, then chip_smoke's 16a
+    # shapes: mamba2-130m's training microbatch (S = 4096 in 16 chunks of
+    # 256) as mamba_apply gives it and all float32, two groups of ragged
+    # widths, and Lc = 1024
+    (2, 3, 1, 2, 64, 16, 32, torch.bfloat16, True),
+    (2, 4, 2, 3, 100, 10, 6, torch.float32, False),
+    (1, 2, 1, 4, 7, 64, 128, torch.float32, False),
+    (1, 2, 2, 1, 1024, 16, 16, torch.float32, False),
+    (4, 24, 1, 16, 256, 64, 128, torch.bfloat16, True),
+    (4, 24, 1, 16, 256, 64, 128, torch.float32, False),
+    (2, 8, 2, 8, 256, 62, 126, torch.bfloat16, True),
+    (1, 4, 1, 2, 1024, 64, 128, torch.float32, False),
+]
+
+
+def _ssd_leaves(rng, B, H, G, nc, Lc, hd, N, bdtype, model, device):
+    """Leaves and the kernel's views of them: in the model's layout (x (B,
+    S, H, hd) and a (B, S, H) float32, B and C slices of one (B, S, 2 G N)
+    tensor in ``bdtype``) or contiguous (B, H or G, nc, Lc, *)."""
+    S = nc * Lc
+    if not model:
+        leaves = list(_ssd_inputs(rng, B, H, nc, Lc, hd, N, torch.float32,
+                                  device, G=G))
+        leaves[1:3] = [t.to(bdtype) for t in leaves[1:3]]
+        return leaves, leaves
+    x = _normal(rng, (B, S, H, hd), torch.float32, device) * 0.5
+    bc = (_normal(rng, (B, S, 2 * G * N), torch.float32, device)
+          * 0.5).to(bdtype)
+    a = -torch.nn.functional.softplus(
+        _normal(rng, (B, S, H), torch.float32, device))
+
+    def groups(t):
+        return t.reshape(B, nc, Lc, G, N).permute(0, 3, 1, 2, 4)
+    leaves = [x, bc, a]
+    return leaves, lambda xl, bcl, al: (
+        xl.reshape(B, nc, Lc, H, hd).permute(0, 3, 1, 2, 4),
+        groups(bcl[..., :G * N]), groups(bcl[..., G * N:]),
+        al.reshape(B, nc, Lc, H).permute(0, 3, 1, 2))
+
+
+def _ssd_grads(leaves, views, dy):
+    """(y, gradients of the views' inputs) through ``ssd_scan_cuda``."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    args = views(*leaves) if callable(views) else leaves
+    if callable(views):
+        args = [a.detach().requires_grad_() for a in args]
+    y = sk.ssd_scan_cuda(*args)
+    return y, torch.autograd.grad(y, args, dy)
+
+
+@pytest.mark.parametrize("B,H,G,nc,Lc,hd,N,bdtype,model", SSD_BWD_CASES)
+def test_ssd_backward_kernel_equals_plain(cuda, B, H, G, nc, Lc, hd, N,
+                                          bdtype, model):
+    """The backward kernels through ``SSDScan`` against ``ssd_bwd_ref`` on
+    float32 copies of the same inputs, per tensor as max |diff| / max
+    |grad|: 1e-4 for the float32 gradients (dx, da, and dB and dC from
+    float32 B and C), one bfloat16 step of the largest (2^-7) for dB and
+    dC returned in bfloat16 (rounded from float32); four backward
+    launches a call, and two calls equal bit for bit."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import (chunk_states_ref,
+                                                  ssd_bwd_ref,
+                                                  state_pass_ref)
+    rng = np.random.default_rng(Lc + hd + N + G)
+    leaves, views = _ssd_leaves(rng, B, H, G, nc, Lc, hd, N, bdtype, model,
+                                cuda)
+    dy = _normal(rng, (B, H, nc, Lc, hd), torch.float32, cuda)
+    before = sk.bwd_launches.count
+    y, got = _ssd_grads(leaves, views, dy)
+    assert sk.bwd_launches.count == before + sk.LAUNCHES_PER_BWD
+    _, again = _ssd_grads(leaves, views, dy)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    args = views(*leaves) if callable(views) else leaves
+    x, b, c, a = (t.detach().float() for t in args)
+    starts = state_pass_ref(*chunk_states_ref(x, b, a))
+    ref = ssd_bwd_ref(x, b, c, a, starts, dy)
+    for name, g, r, t in zip(("dx", "dB", "dC", "da"), got, ref, args):
+        assert g.shape == r.shape and g.dtype == t.dtype, name
+        tol = 2.0 ** -7 if g.dtype == torch.bfloat16 else 1e-4
+        err = float((g.double() - r.double()).abs().max())
+        assert err <= tol * float(r.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("B,H,G,nc,Lc,hd,N,bdtype", [
+    (2, 4, 2, 3, 128, 16, 32, torch.float32),
+    (4, 24, 1, 4, 256, 64, 128, torch.bfloat16)])
+def test_ssd_backward_stage_kernels_equal_plain(cuda, B, H, G, nc, Lc, hd,
+                                                N, bdtype):
+    """Each backward stage kernel against its plain stage on the same
+    inputs: dS, then Q and the end-state products <Q_c, S_{c+1}> (= dT_c
+    + <Q_c, s_c>), then dx, the per-head dB and dC and da, then the group
+    sums, each within 1e-4 of its max."""
+    from repro_torch.kernels.ssd_scan import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    rng = np.random.default_rng(N)
+    x, b, c, a = _ssd_inputs(rng, B, H, nc, Lc, hd, N, torch.float32, cuda,
+                             G=G)
+    b, c = b.to(bdtype), c.to(bdtype)
+    dy = _normal(rng, (B, H, nc, Lc, hd), torch.float32, cuda)
+    states, totals = ref.chunk_states_ref(x, b, a)
+    starts = ref.state_pass_ref(states, totals)
+    y = ref.chunk_scan_ref(x, b, c, a, starts)
+
+    def close(got, want):
+        err = float((got.double() - want.double()).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), err
+    dS = sk.chunk_dstates_cuda(dy, c, a)
+    want_dS = ref.chunk_dstates_ref(dy, c, a)
+    close(dS, want_dS)
+    Q, dT = ref.state_pass_bwd_ref(want_dS, starts, totals)
+    q, end = sk.state_pass_bwd_cuda(want_dS.clone(), starts, totals)
+    close(q, Q)
+    close(end, dT + (Q * states).sum((-2, -1)))
+    dx, dBh, dCh, da = sk.chunk_scan_bwd_cuda(
+        x, b, c, a, dy, y.contiguous(), starts, Q.contiguous(),
+        dT + (Q * states).sum((-2, -1)))
+    want = ref.chunk_scan_bwd_ref(x, b, c, a, starts, Q, dT, dy)
+    close(dx, want[0])
+    close(dBh[..., :N], want[1])
+    close(dCh[..., :N], want[2])
+    close(da, want[3])
+    dB, dC = sk.group_sum_cuda(dBh, dCh, G, N, torch.float32)
+    close(dB, ref.group_sum_ref(want[1], G))
+    close(dC, ref.group_sum_ref(want[2], G))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b"])
+def test_mamba_trainer_on_card(cuda, arch):
+    """The smoke configs train on the card: ``loss_fn``'s gradients in
+    float32 through the kernels (the scan's forward, remat's re-run and
+    its backward; jamba's flash kernels too) equal the plain versions'
+    within 1e-4 of each parameter's max; then two steps of ``Trainer.run``
+    with finite losses and, a layer and microbatch, 3 + 3 ssd_scan and
+    ``LAUNCHES_PER_BWD`` backward launches for each Mamba layer, 2 + 2
+    flash launches for each attention layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    tr = Trainer(cfg, TrainerConfig(seq_len=64, global_batch=4,
+                                    microbatches=2, steps=2, ckpt_every=0,
+                                    log_every=100), device=cuda)
+    state = tr.init_state()
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(cuda)
+        for k in ("tokens", "labels")}
+    grads = [tr.loss_and_grad(state.params, batch, use_kernels=use)[1]
+             for use in (True, False)]
+    for p, q in zip(tree_leaves(grads[0]), tree_leaves(grads[1])):
+        if q is None:
+            assert p is None
+            continue
+        assert float((p - q).abs().max()) <= 1e-4 * float(q.abs().max())
+    for counter in (sk.launches, sk.bwd_launches, fa.launches,
+                    fa.bwd_launches):
+        counter.reset()
+    state = tr.run(state, log=lambda *_: None)
+    kinds = [d[0] for d in M.layer_descs(cfg)]
+    n = 2 * 2   # microbatches x steps
+    mamba, attn = kinds.count("mamba"), len(kinds) - kinds.count("mamba")
+    assert sk.launches.count == 2 * sk.LAUNCHES_PER_CALL * mamba * n
+    assert sk.bwd_launches.count == sk.LAUNCHES_PER_BWD * mamba * n
+    assert fa.launches.count == fa.bwd_launches.count == 2 * attn * n
+    assert np.isfinite(state.metrics["loss_history"]).all()
+
+
 # ---------------------------------------------------------------------------
 # live admission: the kernel against its plain version at its edges
 # ---------------------------------------------------------------------------
@@ -1615,8 +1789,7 @@ def test_loss_gradients_with_kernels_equal_plain_on_card(cuda, arch):
 def test_trainer_on_card_counts_its_launches(cuda):
     """Three steps of the smoke llama on the card: per layer and step, one
     flash forward, its remat re-run and two backward launches; finite
-    falling-or-not losses; no decode or scan kernel.  A Mamba model is
-    refused before its first step (ROADMAP item 11j)."""
+    falling-or-not losses; no decode or scan kernel."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.decode_attention import decode_attention as da
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -1634,6 +1807,3 @@ def test_trainer_on_card_counts_its_launches(cuda):
     assert (fa.launches.count, fa.bwd_launches.count) == (2 * n, 2 * n)
     assert da.launches.count == sk.launches.count == 0
     assert np.isfinite(state.metrics["loss_history"]).all()
-    with pytest.raises(NotImplementedError, match="11j"):
-        Trainer(get_smoke_config("mamba2-130m"), TrainerConfig(),
-                device=cuda)

@@ -41,7 +41,7 @@ from repro_torch.train.trainer import (PreemptionError, Trainer,  # noqa: E402
                                        TrainerConfig)
 
 GRAD_ARCHS = ["llama3-8b", "deepseek-v2-lite-16b", "mamba2-130m",
-              "musicgen-medium"]
+              "musicgen-medium", "jamba-1.5-large-398b"]
 
 
 def _pair(arch, **kw):
@@ -113,8 +113,9 @@ def test_loss_and_gradients_equal_jax(arch):
     """``loss_fn`` and its gradients in float32 against
     ``jax.value_and_grad(repro.models.model.loss_fn)`` from the same
     parameters: llama (GQA), deepseek-v2-lite (MLA, MoE aux loss), mamba2
-    (SSD) and musicgen (embeds; its unused embedding table gets no
-    gradient in the port, zero in JAX)."""
+    (SSD, through ``SSDScan``'s plain stages), musicgen (embeds; its
+    unused embedding table gets no gradient in the port, zero in JAX) and
+    jamba (attention, MoE and Mamba with two groups in one stack)."""
     jc, tc, jp, tp = _pair(arch)
     jb, tb = _batch(tc, 2, 32, 1)
     (jl, jaux), jg = jax.jit(jax.value_and_grad(JM.loss_fn, has_aux=True),
@@ -341,27 +342,26 @@ def model_params_to_numpy_shapes(abstract, cfg):
     return out
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-1.5-large-398b"])
-def test_mamba_training_on_the_card_is_refused(arch):
-    """Before any step (no card needed to ask): the ssd_scan kernels have
-    no backward yet, ROADMAP item 11j."""
-    with pytest.raises(NotImplementedError, match="11j"):
-        Trainer(get_smoke_config(arch), TrainerConfig(), device="cuda")
-
-
 def test_kernels_without_a_backward_refuse_grad():
-    """The ssd_scan and decode_attention wrappers raise, rather than return
-    an output without a gradient, when asked for a graph (meta tensors
-    stand in for the card's: the refusal comes before any launch)."""
+    """The ssd_scan stage wrappers and decode_attention raise, rather than
+    return an output without a gradient, when asked for a graph (meta
+    tensors stand in for the card's: the refusal comes before any
+    launch); the stage wrappers name ``ssd_scan_cuda`` as the
+    differentiable entry."""
     from repro_torch.kernels.decode_attention.decode_attention import \
         decode_attention_cuda
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
     meta = dict(device="meta", requires_grad=True)
-    with pytest.raises(RuntimeError, match="11j"):
-        ssd_scan_cuda(torch.empty(1, 2, 1, 4, 8, **meta),
-                      torch.empty(1, 1, 1, 4, 8, **meta),
-                      torch.empty(1, 1, 1, 4, 8, **meta),
-                      torch.empty(1, 2, 1, 4, **meta))
+    x, b, a = (torch.empty(1, 2, 1, 4, 8, **meta),
+               torch.empty(1, 1, 1, 4, 8, **meta),
+               torch.empty(1, 2, 1, 4, **meta))
+    starts = torch.empty(1, 2, 1, 8, 8, device="meta")
+    with pytest.raises(RuntimeError, match="ssd_scan_cuda is the"):
+        sk.chunk_states_cuda(x, b, a)
+    with pytest.raises(RuntimeError, match="ssd_scan_cuda is the"):
+        sk.chunk_scan_cuda(x, b, b, a, starts)
+    with pytest.raises(RuntimeError, match="ssd_scan_cuda is the"):
+        sk.chunk_dstates_cuda(x, b, a)
     with pytest.raises(RuntimeError, match="no backward"):
         decode_attention_cuda(torch.empty(1, 2, 16, **meta),
                               torch.empty(1, 1, 8, 16, **meta),
