@@ -13,9 +13,15 @@ float32 tensor into the two TF32 parts the kernel multiplies.
 
 The backward (``csrc/ssd_scan_bwd.cu``) has its plain stages too:
 ``chunk_dstates_ref``, ``state_pass_bwd_ref``, ``chunk_scan_bwd_ref`` and
-``group_sum_ref``, composed by ``ssd_bwd_ref``.  For one (b, h) and chunk
-c, with S_c the state the chunk starts from and Q_c the gradient reaching
-the state it ends in:
+``group_sum_ref``, composed by ``ssd_bwd_ref``, with dcs from the rows
+and columns of M as written below; and the stages as the kernels cut the
+work, ``state_pass_bwd_sliced_ref`` (the end-state product in per-slice
+shares), ``chunk_scan_bwd_rows_ref`` (dcs in its closed form, dy_i.y_i -
+x_i.dx_i, from ``dcs_ref``) and ``da_ref`` (the reverse cumsum with the
+end-state product on each chunk's last row), composed by
+``ssd_bwd_stages_ref``.  For one (b, h) and chunk c, with S_c the state
+the chunk starts from and Q_c the gradient reaching the state it ends
+in:
 
     dS_c  = sum_i exp(cs_i) dy_i C_i^T
     R_c   = dS_c + exp(T_c) R_{c+1}, R_nc = 0;  Q_c = R_{c+1}
@@ -37,6 +43,9 @@ import torch.nn.functional as F
 
 #: Rows per tile of the kernel, over which the decays' partial sums run.
 TILE = 64
+
+#: State entries (of hd * N) a block of the backward's reverse pass takes.
+PASS_SLICE = 1024
 
 #: float32 bits kept by TF32: sign, exponent and the top 10 mantissa bits.
 _TF32_MASK = -8192                      # 0xffffe000 as an int32
@@ -211,11 +220,10 @@ def state_pass_bwd_ref(dstates, starts, totals):
     return torch.stack(Q[::-1], dim=2), torch.stack(dT[::-1], dim=2)
 
 
-def chunk_scan_bwd_ref(xdt, Bm, Cm, a, starts, Q, dT, dy):
-    """Backward stage 3: per head, dx (B, H, nc, Lc, hd), dB and dC (B, H,
-    nc, Lc, N) and da (B, H, nc, Lc), float32, from the formulas in the
-    module's docstring; dcs through the rows and columns of M, as they
-    are written."""
+def _scan_bwd_terms(xdt, Bm, Cm, a, starts, Q, dy):
+    """dx, dB and dC per head (the formulas in the module's docstring) and
+    the pieces dcs is built from: cb (C_i.B_j), gx (dy_i.x_j), L, the
+    decays wq = exp(T - cs_j) and wc = exp(cs_i), and Q_c B_j."""
     H, Lc = xdt.shape[1], xdt.shape[3]
     x, g = xdt.float(), dy.float()
     Bh = _heads(Bm.float(), H // Bm.shape[1])
@@ -233,6 +241,17 @@ def chunk_scan_bwd_ref(xdt, Bm, Cm, a, starts, Q, dT, dy):
         wq * torch.einsum("bhcpn,bhcjp->bhcjn", Q, x)
     dC = torch.einsum("bhcij,bhcjn->bhcin", gx * L, Bh) + \
         wc * torch.einsum("bhcpn,bhcip->bhcin", S, g)
+    return dx, dB, dC, (cb, gx, L, wq, wc, QB, Ch, S)
+
+
+def chunk_scan_bwd_ref(xdt, Bm, Cm, a, starts, Q, dT, dy):
+    """Backward stage 3: per head, dx (B, H, nc, Lc, hd), dB and dC (B, H,
+    nc, Lc, N) and da (B, H, nc, Lc), float32, from the formulas in the
+    module's docstring; dcs through the rows and columns of M, as they
+    are written."""
+    x, g = xdt.float(), dy.float()
+    dx, dB, dC, (cb, gx, L, wq, wc, QB, Ch, S) = _scan_bwd_terms(
+        xdt, Bm, Cm, a, starts, Q, dy)
     M = cb * gx * L
     y_off = wc * torch.einsum("bhcin,bhcpn->bhcip", Ch, S)
     W = (wq * QB * x).sum(-1)
@@ -240,6 +259,52 @@ def chunk_scan_bwd_ref(xdt, Bm, Cm, a, starts, Q, dT, dy):
     dcs[..., -1] += W.sum(-1) + dT
     da = dcs.flip(-1).cumsum(-1).flip(-1)
     return dx, dB, dC, da
+
+
+def pass_slices(entries: int) -> int:
+    """Slices of ``PASS_SLICE`` entries the reverse pass cuts a state of
+    ``entries`` into."""
+    return -(-entries // PASS_SLICE)
+
+
+def state_pass_bwd_sliced_ref(dstates, starts, totals):
+    """Backward stage 2 as the kernel cuts it: Q as ``state_pass_bwd_ref``
+    and partials (B, H, slices, nc), slice s's share of the end-state
+    product <Q_c, S_{c+1}> over the entries [PASS_SLICE s, PASS_SLICE (s
+    + 1)) of the flattened (hd, N) state (0 for the last chunk).  Their
+    sum over the slices is dT_c + <Q_c, s_c>."""
+    B, H, nc, hd, N = dstates.shape
+    Q, _ = state_pass_bwd_ref(dstates, starts, totals)
+    nxt = torch.zeros_like(starts, dtype=torch.float32)
+    nxt[:, :, :-1] = starts[:, :, 1:].float()
+    prod = (Q * nxt).reshape(B, H, nc, hd * N)
+    k = pass_slices(hd * N)
+    prod = F.pad(prod, (0, k * PASS_SLICE - hd * N))
+    partials = prod.reshape(B, H, nc, k, PASS_SLICE).sum(-1)
+    return Q, partials.transpose(2, 3).contiguous()
+
+
+def dcs_ref(xdt, dx, dy, y):
+    """dcs_i = dy_i.y_i - x_i.dx_i (B, H, nc, Lc): the gradient through
+    cs in its closed form, the end-state product not added."""
+    return (dy.float() * y.float()).sum(-1) - (xdt.float() * dx).sum(-1)
+
+
+def chunk_scan_bwd_rows_ref(xdt, Bm, Cm, a, starts, Q, dy, y):
+    """Backward stage 3 as the kernel computes it: dx, dB and dC per head
+    (as ``chunk_scan_bwd_ref``) and dcs from ``dcs_ref`` on the forward's
+    output ``y``, with no M."""
+    dx, dB, dC, _ = _scan_bwd_terms(xdt, Bm, Cm, a, starts, Q, dy)
+    return dx, dB, dC, dcs_ref(xdt, dx, dy, y)
+
+
+def da_ref(dcs, partials):
+    """Backward stage 4: da_k = sum_{i>=k} dcs_i inside each chunk, the
+    end-state product (``partials`` summed over its slices in order) added
+    on the chunk's last row."""
+    v = dcs.clone()
+    v[..., -1] += partials.sum(2)
+    return v.flip(-1).cumsum(-1).flip(-1)
 
 
 def group_sum_ref(t: torch.Tensor, G: int) -> torch.Tensor:
@@ -260,3 +325,19 @@ def ssd_bwd_ref(xdt, Bm, Cm, a, starts, dy):
     Q, dT = state_pass_bwd_ref(chunk_dstates_ref(dy, Cm, a), starts, totals)
     dx, dB, dC, da = chunk_scan_bwd_ref(xdt, Bm, Cm, a, starts, Q, dT, dy)
     return dx, group_sum_ref(dB, G), group_sum_ref(dC, G), da
+
+
+def ssd_bwd_stages_ref(xdt, Bm, Cm, a, starts, dy, y):
+    """The backward as the kernels cut it, each stage its plain version:
+    ``chunk_dstates_ref``, ``state_pass_bwd_sliced_ref``,
+    ``chunk_scan_bwd_rows_ref`` (dcs closed, from the forward's output
+    ``y``), ``da_ref`` and ``group_sum_ref``; (dxdt, dBm, dCm, da) as
+    ``ssd_bwd_ref``."""
+    G = Bm.shape[1]
+    _, totals = chunk_states_ref(xdt, Bm, a)
+    Q, partials = state_pass_bwd_sliced_ref(chunk_dstates_ref(dy, Cm, a),
+                                            starts, totals)
+    dx, dB, dC, dcs = chunk_scan_bwd_rows_ref(xdt, Bm, Cm, a, starts, Q, dy,
+                                              y)
+    return (dx, group_sum_ref(dB, G), group_sum_ref(dC, G),
+            da_ref(dcs, partials))

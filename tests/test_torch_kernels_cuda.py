@@ -1372,13 +1372,18 @@ def test_ssd_backward_kernel_equals_plain(cuda, B, H, G, nc, Lc, hd, N,
 
 @pytest.mark.parametrize("B,H,G,nc,Lc,hd,N,bdtype", [
     (2, 4, 2, 3, 128, 16, 32, torch.float32),
-    (4, 24, 1, 4, 256, 64, 128, torch.bfloat16)])
+    (4, 24, 1, 4, 256, 64, 128, torch.bfloat16),
+    (2, 4, 2, 3, 100, 12, 24, torch.bfloat16),
+    (1, 4, 1, 2, 1024, 64, 128, torch.float32)])
 def test_ssd_backward_stage_kernels_equal_plain(cuda, B, H, G, nc, Lc, hd,
                                                 N, bdtype):
     """Each backward stage kernel against its plain stage on the same
     inputs: dS, then Q and the end-state products <Q_c, S_{c+1}> (= dT_c
-    + <Q_c, s_c>), then dx, the per-head dB and dC and da, then the group
-    sums, each within 1e-4 of its max."""
+    + <Q_c, s_c>, and the sum of ``state_pass_bwd_sliced_ref``'s shares),
+    then dx, the per-head dB and dC and da (also ``da_ref`` of the closed
+    form's dcs), then the group sums, each within 1e-4 of its max.  Ragged
+    Lc with hd and N below the instance's widths, and the longest
+    chunk."""
     from repro_torch.kernels.ssd_scan import ref
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     rng = np.random.default_rng(N)
@@ -1400,6 +1405,8 @@ def test_ssd_backward_stage_kernels_equal_plain(cuda, B, H, G, nc, Lc, hd,
     q, end = sk.state_pass_bwd_cuda(want_dS.clone(), starts, totals)
     close(q, Q)
     close(end, dT + (Q * states).sum((-2, -1)))
+    _, parts = ref.state_pass_bwd_sliced_ref(want_dS, starts, totals)
+    close(end, parts.sum(2))
     dx, dBh, dCh, da = sk.chunk_scan_bwd_cuda(
         x, b, c, a, dy, y.contiguous(), starts, Q.contiguous(),
         dT + (Q * states).sum((-2, -1)))
@@ -1408,6 +1415,8 @@ def test_ssd_backward_stage_kernels_equal_plain(cuda, B, H, G, nc, Lc, hd,
     close(dBh[..., :N], want[1])
     close(dCh[..., :N], want[2])
     close(da, want[3])
+    rows = ref.chunk_scan_bwd_rows_ref(x, b, c, a, starts, Q, dy, y)
+    close(da, ref.da_ref(rows[3], parts))
     dB, dC = sk.group_sum_cuda(dBh, dCh, G, N, torch.float32)
     close(dB, ref.group_sum_ref(want[1], G))
     close(dC, ref.group_sum_ref(want[2], G))

@@ -2,7 +2,8 @@
 package: the plain backward (``ref.ssd_bwd_ref``) and each of its stages
 against ``jax.vjp`` of JAX's ``ssd_ref`` (the recurrence), of
 ``repro.models.mamba2.ssd_chunk_scan`` from a zero state, and of jnp
-forms of each stage; ``SSDScan`` (which runs the plain stages for CPU
+forms of each stage; the plain stages as the kernels cut them
+(``ssd_bwd_stages_ref``) against those and the same references; ``SSDScan`` (which runs the plain stages for CPU
 tensors) against ``torch.autograd`` of the port's ``ssd_ref`` through
 strided views of the model's layout; and ``mamba_apply``'s gradients
 against ``jax.grad`` of JAX's.
@@ -157,6 +158,57 @@ def test_plain_backward_equals_jax_vjp(H, G, Lc, hd, N, bdtype):
     for g, r in ((sref.group_sum_ref(dBh, G), per_group(scan[1])),
                  (sref.group_sum_ref(dCh, G), per_group(scan[2]))):
         assert _rel(g, r) <= F32_TOL
+
+
+@pytest.mark.parametrize("bdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,G,Lc,hd,N", CASES)
+def test_kernel_stages_equal_the_plain_chain_and_jax(H, G, Lc, hd, N,
+                                                     bdtype):
+    """The plain versions of the stages as the kernels cut them: the
+    sliced reverse pass (Q as ``state_pass_bwd_ref``, its per-slice
+    shares of <Q_c, S_{c+1}> summing to dT_c + <Q_c, s_c>), dcs in its
+    closed form with ``da_ref`` (equal to the M form's da), and their
+    composition ``ssd_bwd_stages_ref`` against ``ssd_bwd_ref`` and
+    ``jax.vjp`` of ``ssd_ref`` and ``ssd_chunk_scan``.  A state of more
+    than ``PASS_SLICE`` entries is cut into several slices."""
+    B, nc = 2, 2
+    if N * hd <= sref.PASS_SLICE:       # several slices: widen the state
+        N = N * (sref.PASS_SLICE // (N * hd) + 1)
+    x, b, c, a, dy = _draw(Lc + hd + N + H + 1, B, H, G, nc, Lc, hd, N,
+                           bdtype)
+    t = [torch.from_numpy(v) for v in (x, b, c, a, dy)]
+    tb, tc = (v.to(getattr(torch, bdtype)) for v in t[1:3])
+    states, totals = sref.chunk_states_ref(t[0], tb, t[3])
+    starts = sref.state_pass_ref(states, totals)
+    y = sref.chunk_scan_ref(t[0], tb, tc, t[3], starts)
+    dS = sref.chunk_dstates_ref(t[4], tc, t[3])
+    Q, dT = sref.state_pass_bwd_ref(dS, starts, totals)
+    Qs, partials = sref.state_pass_bwd_sliced_ref(dS, starts, totals)
+    assert partials.shape == (B, H, sref.pass_slices(hd * N), nc)
+    assert partials.shape[2] > 1 and torch.equal(Qs, Q)
+    end = dT + (Q * states).sum((-2, -1))
+    assert _rel(partials.sum(2), end) <= F32_TOL
+    assert float(partials[..., -1].abs().max()) == 0.0
+    dx, dBh, dCh, dcs = sref.chunk_scan_bwd_rows_ref(t[0], tb, tc, t[3],
+                                                     starts, Q, t[4], y)
+    want = sref.chunk_scan_bwd_ref(t[0], tb, tc, t[3], starts, Q, dT, t[4])
+    for g, r in zip((dx, dBh, dCh, sref.da_ref(dcs, partials)), want):
+        assert _rel(g, r) <= F32_TOL
+    got = sref.ssd_bwd_stages_ref(t[0], tb, tc, t[3], starts, t[4], y)
+    rec, form, _, (jQ, jdT), scan = _j_refs(*map(jnp.asarray, (
+        x, b, c, a, dy, starts, states, totals, dS, Q, dT)))
+    assert _rel(partials.sum(2), np.asarray(jdT) + np.einsum(
+        "bhcpn,bhcpn->bhc", np.asarray(jQ), states.numpy())) <= F32_TOL
+    assert _rel(sref.da_ref(dcs, partials), scan[3]) <= F32_TOL
+
+    def per_group(g):
+        return np.asarray(g).reshape(B, G, H // G, *g.shape[2:]).sum(2)
+    plain = sref.ssd_bwd_ref(t[0], tb, tc, t[3], starts, t[4])
+    for ref in (rec, form):
+        ref = (ref[0], per_group(ref[1]), per_group(ref[2]), ref[3])
+        for name, g, r, p in zip(("dx", "dB", "dC", "da"), got, ref, plain):
+            assert _rel(g, r) <= F32_TOL, name
+            assert _rel(g, p) <= F32_TOL, name
 
 
 def _model_views(x, b, c, a, G):
